@@ -8,19 +8,24 @@ It needs one CUDA card and fails (non-zero exit, no result line) without one.  I
 imports nothing of JAX or of the JAX package.  Phases, each printed as JSON lines:
 
 1. the card (``nvidia-smi`` name and power limit, torch's device name);
-2. the build of every kernel from ``rdfind_tpu_torch/csrc`` with nvcc (sm_90a);
+2. the build of every kernel library from ``rdfind_tpu_torch/csrc`` with nvcc
+   (sm_90a), one nvcc process per source, all started together;
 3. each kernel against its plain PyTorch version on the card, bit-exact, at the
-   main path's shapes and at edge cases, with its time, the plain version's time,
-   the time of one library call for the same product (a yardstick the port never
-   calls) and the least time the card could take (``bound_ms``);
-4. the main path, ``rdfind_tpu_torch.discover(..., strategy=0)``, on the headline
-   workload and on the real-size workload, with the kernel launch counts of each
-   run; the CIND count and output digest of each must equal the JAX package's,
-   and every launch of the real-size sweep must also equal the plain version;
-5. one more run of each workload under torch.profiler: device busy time, idle
-   share, host time per pipeline stage, the operators with the most device time;
-   then the headline without the frequent-condition filter (the CLI's default,
-   ~20x the captures), whose output must still equal the headline golden;
+   main paths' shapes and at edge cases, with its time, the plain version's time,
+   the time of one library call for the same function (a yardstick the port
+   never calls) and the least time the card could take (``bound_ms``): K1
+   (strategy 0's fused sweep), K2 (the Bloom containment of strategies 2 and 3,
+   on the sketches the port builds) and the probes P1 and P2;
+4. the main paths, ``rdfind_tpu_torch.discover(..., strategy=0|2|3)``, on the
+   headline workload and on the real-size workload, with the kernel launch
+   counts of each run; the CIND count and output digest of each must equal the
+   JAX package's (and the candidate counts of strategies 2 and 3 too), and every
+   launch of the real-size strategy-0 sweep must also equal the plain version;
+5. one more run of each strategy on each workload under torch.profiler:
+   device busy time, idle share, host time per pipeline stage, the operators
+   with the most device time; then the headline without the frequent-condition
+   filter (the CLI's default, ~20x the captures), whose output must still equal
+   the headline golden;
 6. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
 Any mismatch raises, so the script exits non-zero without the last line.
@@ -41,9 +46,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import rdfind_tpu_torch  # noqa: E402
-from rdfind_tpu_torch.models import allatonce  # noqa: E402
+from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
 from rdfind_tpu_torch.obs import integrity  # noqa: E402
-from rdfind_tpu_torch.ops import build, cooc, kernels  # noqa: E402
+from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit.
@@ -65,6 +70,27 @@ GOLDEN = {
     "dbpedia2m": dict(triples="f40ea3cfaf10", n_cinds=1397,
                       digest="0264f31fbfec8876"),
 }
+
+# Strategies 2 and 3, recorded the same way from the JAX package's
+#   rdfind_tpu.models.approximate.discover(t, s, stats=st)   (strategy 2)
+#   rdfind_tpu.models.late_bb.discover(t, s, stats=st)       (strategy 3)
+# with the candidate counts from `st`.  Raw strategy 2 equals raw strategy 0.  The
+# sketch-candidate count depends on every bit of the hash, the sketch build and
+# K2, so it checks them at full size; false positives never reach the digest.
+GOLDEN_APPROX = {
+    ("headline", 2): dict(n_cinds=622016, digest="d4689a6b896a697f",
+                          n_sketch_candidates=2628346),
+    ("headline", 3): dict(n_cinds=384272, digest="01f997b4baf6fa93",
+                          n_round1_candidates=1215133,
+                          n_round2_candidates=1170724),
+    ("dbpedia2m", 2): dict(n_cinds=1397, digest="0264f31fbfec8876",
+                           n_sketch_candidates=1405),
+    ("dbpedia2m", 3): dict(n_cinds=1397, digest="0264f31fbfec8876",
+                           n_round1_candidates=1405, n_round2_candidates=0),
+}
+# The kernels each main path must launch.
+K2_PATH = ("packed_contains_matrix", "repeat_probe", "pipeline_probe")
+PATH_KERNELS = {0: ("fused_cind_blocks",), 2: K2_PATH, 3: K2_PATH}
 
 # (name, triples generator, min_support).
 WORKLOADS = [
@@ -255,40 +281,192 @@ def run_k1_cases(cases, device) -> list:
     return rows
 
 
+def sketch_prepare(triples, support: int, device) -> dict:
+    """K2's inputs on the strategy-2 main path, through the port's own stages:
+    the packed sketches, the packed ref bit sets of every capture and the
+    dep-tile width."""
+    t = allatonce.triples_on(triples, device)
+    st = allatonce.prepare_join_lines(t, support, "spo", True, False, None)
+    sk = approximate._build_sketches(
+        st["line_val_h"], st["line_cap_h"], st["num_caps"],
+        bits=sketch.DEFAULT_BITS, num_hashes=sketch.DEFAULT_HASHES,
+        device=device)
+    ref_ids = torch.arange(sk.shape[0], dtype=torch.int32, device=device)
+    words, popc = sketch.pack_ref_bits(ref_ids, bits=sketch.DEFAULT_BITS,
+                                       num_hashes=sketch.DEFAULT_HASHES)
+    return dict(sk=sk, words=words, popc=popc,
+                tile=cooc.tile_for(sk.shape[0], approximate.DEP_TILE))
+
+
+def synthetic_contains(seed: int, d: int, r: int, bits: int, device,
+                       density: int) -> tuple:
+    """K2 operands of random ids: each dep sketch holds the bit sets of 3 refs
+    (planted containments) over random words in which ~1/2^density of the bits
+    are set (density 0: ~3/4 of them)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ids = torch.randint(0, 1 << 30, (r,), generator=gen, device=device,
+                        dtype=torch.int32)
+    words, popc = sketch.pack_ref_bits(ids, bits=bits,
+                                       num_hashes=sketch.DEFAULT_HASHES)
+
+    def rand_words():
+        return torch.randint(-(1 << 31), 1 << 31, (d, bits // 32),
+                             generator=gen, device=device, dtype=torch.int32)
+
+    sk = rand_words() | rand_words() if density == 0 else rand_words()
+    for _ in range(density - 1):
+        sk &= rand_words()
+    pick = torch.randint(0, r, (d, 3), generator=gen, device=device)
+    sk |= words[pick[:, 0]] | words[pick[:, 1]] | words[pick[:, 2]]
+    return sk, words, popc
+
+
+def k2_cases(sk_preps: dict, device) -> list:
+    """Kernel-vs-plain cases of K2: the first dep tile of each workload as the
+    main path issues it (real sketches, every capture as a ref), the headline
+    tile with its last 64 refs padded (zero words, popc -1), W = 1, W = 512
+    (16 word chunks), and planted containments among dense words."""
+    out = []
+    for name, p in sk_preps.items():
+        out.append(dict(name=f"{name}_tile0",
+                        args=(p["sk"][:p["tile"]], p["words"], p["popc"])))
+    h = sk_preps["headline"]
+    words, popc = h["words"].clone(), h["popc"].clone()
+    words[-64:] = 0
+    popc[-64:] = -1
+    out.append(dict(name="headline_tile0_padded_refs",
+                    args=(h["sk"][:h["tile"]], words, popc)))
+    out.append(dict(name="w1_bits32",
+                    args=synthetic_contains(1, 256, 2048, 32, device, 2)))
+    out.append(dict(name="w512_bits16384",
+                    args=synthetic_contains(2, 128, 1024, 16384, device, 3)))
+    out.append(dict(name="planted_dense",
+                    args=synthetic_contains(3, 256, 4096, 2048, device, 0)))
+    return out
+
+
+def compare_k2(args) -> int:
+    got = kernels.packed_contains_matrix(*args)
+    want = kernels.packed_contains_matrix_plain(*args)
+    err = int((got.int() - want.int()).abs().max())
+    if err or not torch.equal(got, want):
+        raise AssertionError(f"packed_contains_matrix disagrees with its plain "
+                             f"version (max abs err {err})")
+    return err
+
+
+def run_k2_cases(cases, device) -> list:
+    """Each case: bit-exact against the plain version, then timed.  The bound
+    counts K2's function as the TPU kernel does it, 2 D R bits operations at the
+    int8 tensor-core peak, against the packed inputs read once and the uint8
+    output written once; the library yardstick is torch._int_mm of the unpacked
+    0/1 planes, (D x bits) @ (bits x R), the product alone."""
+    rows = []
+    for case in cases:
+        args = case["args"]
+        sk, words, popc = args
+        (d, w), r = sk.shape, words.shape[0]
+        bits = 32 * w
+        err = compare_k2(args)
+        k_ms = time_ms(lambda: kernels.packed_contains_matrix(*args), device,
+                       reps=50)
+        p_ms = time_ms(lambda: kernels.packed_contains_matrix_plain(*args),
+                       device, reps=3)
+        a = sketch.unpack_planes(sk).to(torch.int8)
+        b = sketch.unpack_planes(words).to(torch.int8)
+        lib_ms = time_ms(lambda: torch._int_mm(a, b.T), device, reps=50)
+        del a, b
+        ops = 2 * d * r * bits
+        nbytes = 4 * (d + r) * w + 4 * r + d * r
+        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+        row = dict(phase="kernel", kernel="packed_contains_matrix",
+                   case=case["name"], d=d, r=r, w=w, ops=ops, bytes=nbytes,
+                   hits=int(kernels.packed_contains_matrix(*args).sum()),
+                   match=True, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
+                   library_ms=lib_ms,
+                   library="torch._int_mm of the unpacked 0/1 planes",
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def run_probe_cases(device) -> dict:
+    """P1 and P2 against their plain versions at the TPU probes' shapes; the
+    plain version of each is itself one PyTorch call, timed again as the
+    library yardstick.  Both are bytes-bound: a few kilobytes each."""
+    x = torch.arange(2, dtype=torch.int32, device=device).reshape(1, 2)
+    y = torch.ones((16, 128), dtype=torch.float32, device=device)
+    cases = [
+        ("repeat_probe", x, kernels.repeat_probe, kernels.repeat_probe_plain,
+         lambda: x.repeat(1, 2), 8 + 16),
+        ("pipeline_probe", y, kernels.pipeline_probe,
+         kernels.pipeline_probe_plain,
+         lambda: y.reshape(2, 8, 128).sum(dim=0), 4 * (16 + 8) * 128),
+    ]
+    rows = {}
+    for name, arg, fn, plain, lib, nbytes in cases:
+        got, want = fn(arg), plain(arg)
+        err = float((got.double() - want.double()).abs().max())
+        if err or not torch.equal(got, want):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"(max abs err {err})")
+        row = dict(phase="kernel", kernel=name, case="tpu_probe_shape",
+                   match=True, max_abs_err=err, result=got.flatten()[:4]
+                   .tolist(), kernel_ms=time_ms(lambda: fn(arg), device,
+                                                reps=50),
+                   plain_ms=time_ms(lambda: plain(arg), device, reps=50),
+                   library_ms=time_ms(lib, device, reps=50),
+                   bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+        emit(row)
+        rows[name] = row
+    return rows
+
+
 def triples_sha1(triples) -> str:
     return hashlib.sha1(np.ascontiguousarray(triples, np.int32)
                         .tobytes()).hexdigest()[:12]
 
 
-def run_main_path(name, triples, support, device, reps: int = 3) -> dict:
-    """Strategy-0 discover through the public entry point, `reps` times; each
+def run_main_path(name, triples, support, device, strategy: int = 0,
+                  reps: int = 3) -> dict:
+    """discover(strategy=...) through the public entry point, `reps` times; each
     run has the kernel launch counts set to 0 just before and read just after,
-    and its CIND count and output digest must equal the JAX package's."""
-    golden = GOLDEN[name]
-    if triples_sha1(triples) != golden["triples"]:
+    every kernel of the path must have launched, and the CIND count, output
+    digest and (strategies 2, 3) candidate counts must equal the JAX package's."""
+    if triples_sha1(triples) != GOLDEN[name]["triples"]:
         raise AssertionError(f"{name}: generated triples differ from the "
                              f"ones the golden was recorded on")
+    golden = GOLDEN[name] if strategy == 0 else GOLDEN_APPROX[(name, strategy)]
     walls = []
     for _ in range(reps):
         stats = {}
         kernels.reset_launches()
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        table = rdfind_tpu_torch.discover(triples, support, strategy=0,
+        table = rdfind_tpu_torch.discover(triples, support, strategy=strategy,
                                           device=device, stats=stats)
         torch.cuda.synchronize(device)
         walls.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
-        if launches["fused_cind_blocks"] <= 0:
-            raise AssertionError(f"{name}: the main path launched no K1 kernel")
+        idle = [k for k in PATH_KERNELS[strategy] if launches[k] <= 0]
+        if idle:
+            raise AssertionError(f"{name}, strategy {strategy}: the main path "
+                                 f"launched no {idle} kernel")
         digest = integrity.digest_hex(*integrity.digest_table(table))
-        if (len(table), digest) != (golden["n_cinds"], golden["digest"]):
-            raise AssertionError(f"{name}: {len(table)} CINDs / digest "
-                                 f"{digest}, the JAX package gives {golden}")
+        got = dict(n_cinds=len(table), digest=digest,
+                   **{k: stats[k] for k in golden
+                      if k not in ("triples", "n_cinds", "digest")})
+        want = {k: v for k, v in golden.items() if k != "triples"}
+        if got != want:
+            raise AssertionError(f"{name}, strategy {strategy}: {got}, the "
+                                 f"JAX package gives {want}")
     wall = sorted(walls)[len(walls) // 2]
-    row = dict(phase="main", workload=name, n_triples=len(triples),
-               min_support=support, wall_s=wall, wall_s_runs=walls,
-               n_cinds=len(table), digest=digest, golden_match=True,
+    row = dict(phase="main", workload=name, strategy=strategy,
+               n_triples=len(triples), min_support=support, wall_s=wall,
+               wall_s_runs=walls, n_cinds=len(table), digest=digest,
+               golden_match=True, checked=want,
                cinds_per_s=len(table) / wall,
                pairs_per_s=stats["total_pairs"] / wall,
                total_pairs=stats["total_pairs"], launches=launches,
@@ -297,7 +475,7 @@ def run_main_path(name, triples, support, device, reps: int = 3) -> dict:
     return row
 
 
-def profile_main_path(name, triples, support, device) -> dict:
+def profile_main_path(name, triples, support, device, strategy: int) -> dict:
     """One more discover under torch.profiler (launches not counted): the
     device's busy time (union of its kernel and copy intervals) and idle share
     of the wall time, the host time of each named stage range, and the device
@@ -308,7 +486,8 @@ def profile_main_path(name, triples, support, device) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rdfind_tpu_torch.discover(triples, support, strategy=0, device=device)
+        rdfind_tpu_torch.discover(triples, support, strategy=strategy,
+                                  device=device)
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
     stages, spans, by_name = {}, [], {}
@@ -330,7 +509,8 @@ def profile_main_path(name, triples, support, device) -> dict:
             busy_us += hi - reach
             reach = hi
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    row = dict(phase="profile", workload=name, wall_ms=wall_ms,
+    row = dict(phase="profile", workload=name, strategy=strategy,
+               wall_ms=wall_ms,
                device_busy_ms=busy_us / 1e3,
                idle_share=1.0 - busy_us / 1e3 / wall_ms,
                stages_host_ms=stages,
@@ -367,17 +547,27 @@ def main() -> int:
     data = {name: (gen(), support) for name, gen, support in WORKLOADS}
     preps = {name: prepare(t, s, device) for name, (t, s) in data.items()}
     k1_rows = run_k1_cases(k1_cases(preps, device), device)
+    del preps
+    sk_preps = {name: sketch_prepare(t, s, device)
+                for name, (t, s) in data.items()}
+    k2_rows = run_k2_cases(k2_cases(sk_preps, device), device)
+    del sk_preps
+    probe_rows = run_probe_cases(device)
 
     main_rows = {}
-    for name, (triples, support) in data.items():
-        main_rows[name] = run_main_path(name, triples, support, device)
+    for strategy in (0, 2, 3):
+        for name, (triples, support) in data.items():
+            main_rows[(name, strategy)] = run_main_path(
+                name, triples, support, device, strategy=strategy)
 
-    for name, (triples, support) in data.items():
-        profile_main_path(name, triples, support, device)
+    for strategy in (0, 2, 3):
+        for name, (triples, support) in data.items():
+            profile_main_path(name, triples, support, device, strategy)
 
     # Every launch of the real-size sweep, kernel against plain on the card
     # (after the main-path counts were read, so these launches do not count).
-    p = preps[REAL_SIZE]
+    p = prepare(*data[REAL_SIZE], device)
+
     for ln in p["launches"]:
         case = k1_case("", p["m"], p["cols"], p["rows"], ln.lo, ln.width,
                        ln.block_ids, ln.block_ids.size, 0, p["plan"].c_pad)
@@ -405,16 +595,41 @@ def main() -> int:
               n_cinds=len(table), digest=digest, golden_match=True,
               launches=dict(kernels.LAUNCHES), dense_plan=stats["dense_plan"]))
 
+    # Each kernel's row: its time at the real-size main path's shape, its
+    # launches in that path's checked run, its largest error over all cases.
     real = next(r for r in k1_rows if r["case"] == f"{REAL_SIZE}_launch0")
-    emit({"kernels": [dict(
-        name="fused_cind_blocks", route="cuda",
-        source="rdfind_tpu_torch/csrc/fused_cind.cu",
-        replaces="rdfind_tpu/ops/pallas_kernels.py:555",
-        launches=main_rows[REAL_SIZE]["launches"]["fused_cind_blocks"],
-        max_abs_err=max(r["max_abs_err"] for r in k1_rows),
-        ms=real["kernel_ms"], plain_ms=real["plain_ms"],
-        bound_ms=real["bound_ms"], bound_by=real["bound_by"],
-        library_ms=real["library_ms"])]})
+    real2 = next(r for r in k2_rows if r["case"] == f"{REAL_SIZE}_tile0")
+    launches0 = main_rows[(REAL_SIZE, 0)]["launches"]
+    launches2 = main_rows[(REAL_SIZE, 2)]["launches"]
+    line = [
+        dict(name="fused_cind_blocks", route="cuda",
+             source="rdfind_tpu_torch/csrc/fused_cind.cu",
+             replaces="rdfind_tpu/ops/pallas_kernels.py:555",
+             launches=launches0["fused_cind_blocks"],
+             max_abs_err=max(r["max_abs_err"] for r in k1_rows),
+             ms=real["kernel_ms"], plain_ms=real["plain_ms"],
+             bound_ms=real["bound_ms"], bound_by=real["bound_by"],
+             library_ms=real["library_ms"]),
+        dict(name="packed_contains_matrix", route="cuda",
+             source="rdfind_tpu_torch/csrc/contains.cu",
+             replaces="rdfind_tpu/ops/pallas_kernels.py:336",
+             launches=launches2["packed_contains_matrix"],
+             max_abs_err=max(r["max_abs_err"] for r in k2_rows),
+             ms=real2["kernel_ms"], plain_ms=real2["plain_ms"],
+             bound_ms=real2["bound_ms"], bound_by=real2["bound_by"],
+             library_ms=real2["library_ms"]),
+    ]
+    for name, replaces in (("repeat_probe", "pallas_kernels.py:113"),
+                           ("pipeline_probe", "pallas_kernels.py:249")):
+        r = probe_rows[name]
+        line.append(dict(name=name, route="cuda",
+                         source="rdfind_tpu_torch/csrc/contains.cu",
+                         replaces=f"rdfind_tpu/ops/{replaces}",
+                         launches=launches2[name],
+                         max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,8 +6,9 @@ on the CUDA card unless the caller passes ``device="cpu"``; with no device and n
 card they raise.  On a CUDA tensor every kernel wrapper launches its hand-written
 kernel (``csrc/``); on a CPU tensor it runs the kernel's plain PyTorch version.
 
-Ported so far: strategy 0 (AllAtOnce) on one device, dense path.  What remains is
-listed in ROADMAP.md.
+Ported so far, on one device: strategy 0 (AllAtOnce, dense path), strategy 2
+(ApproximateAllAtOnce) and strategy 3 (LateBB), the last two with dense
+verification.  What remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"
@@ -18,7 +19,7 @@ def discover(triples, min_support: int = 10, strategy: int = 1, *,
     """One-call CIND discovery over an (N, 3) int32 id-triple table.
 
     ``strategy`` follows the reference's ids: 0 = all-at-once, 1 = small-to-large,
-    2 = approximate all-at-once, 3 = late-BB.  Only 0 is ported; the others raise.
+    2 = approximate all-at-once, 3 = late-BB.  0, 2 and 3 are ported; 1 raises.
     Extra kwargs go to the strategy (``projections=``, ``stats=``,
     ``clean_implied=``, ...).  Returns a ``data.CindTable``.
     """

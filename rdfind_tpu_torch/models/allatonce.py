@@ -26,7 +26,26 @@ from ..ops.emission import emit_join_candidates
 
 class DensePlanTooLarge(RuntimeError):
     """The membership matrix does not fit the device budget.  The chunked
-    sort-and-count fallback of the JAX package is not ported yet."""
+    sort-and-count fallback of the JAX package is not ported yet (ROADMAP.md,
+    queue 1 item 1)."""
+
+
+def _emit_and_intern(triples, min_support: int, *, projections: str,
+                     use_fc_filter: bool, use_ars: bool):
+    """Frequent-condition filter + join-candidate emission + capture interning.
+
+    Returns (cands, cap_cols, cap_id, num_caps): the candidate rows, the capture
+    table columns (code, v1, v2) with exactly num_caps rows in ascending order,
+    and each candidate row's capture id (-1 on invalid rows).
+    """
+    n = triples.shape[0]
+    freq = (frequency.triple_frequencies(triples, min_support,
+                                         find_ar_implied=use_ars)
+            if use_fc_filter else frequency.no_filter(n, triples.device))
+    cands = emit_join_candidates(triples, freq, projections)
+    cap_cols, cap_id, num_caps = segments.masked_unique(
+        [cands.code, cands.v1, cands.v2], cands.valid)
+    return cands, cap_cols, cap_id, num_caps
 
 
 def _stage_prepare(triples, min_support: int, *, projections: str,
@@ -38,16 +57,76 @@ def _stage_prepare(triples, min_support: int, *, projections: str,
     are -1 on invalid rows), the capture table columns with exactly num_caps
     rows in ascending (code, v1, v2) order.
     """
-    n = triples.shape[0]
-    freq = (frequency.triple_frequencies(triples, min_support,
-                                         find_ar_implied=use_ars)
-            if use_fc_filter else frequency.no_filter(n, triples.device))
-    cands = emit_join_candidates(triples, freq, projections)
-    cap_cols, cap_id, num_caps = segments.masked_unique(
-        [cands.code, cands.v1, cands.v2], cands.valid)
+    cands, cap_cols, cap_id, num_caps = _emit_and_intern(
+        triples, min_support, projections=projections,
+        use_fc_filter=use_fc_filter, use_ars=use_ars)
     line_gid, n_lines = segments.masked_dense_ids(cands.join_val, cands.valid)
     return (line_gid, cap_id, cands.valid, n_lines,
             cap_cols[0], cap_cols[1], cap_cols[2], num_caps)
+
+
+def _stage_candidates(triples, min_support: int, *, projections: str,
+                      use_fc_filter: bool, use_ars: bool = False):
+    """Triples -> distinct join-line rows sorted by (value, capture) + capture
+    table.  Returns (line_val, line_cap, cap_code, cap_v1, cap_v2, num_caps)."""
+    cands, cap_cols, cap_id, num_caps = _emit_and_intern(
+        triples, min_support, projections=projections,
+        use_fc_filter=use_fc_filter, use_ars=use_ars)
+    line_cols, _, _ = segments.masked_unique([cands.join_val, cap_id],
+                                             cands.valid)
+    return (line_cols[0], line_cols[1], cap_cols[0], cap_cols[1],
+            cap_cols[2], num_caps)
+
+
+def _stage_capture_filter(line_val, line_cap, num_caps: int,
+                          min_support: int):
+    """Exact capture support + frequent-capture pruning.
+
+    dep_count[c] = distinct join values containing capture c (its rows, since
+    rows are distinct).  Keeps the rows of frequent captures, in order.
+    Returns (line_val, line_cap, dep_count).
+    """
+    dep_count = torch.bincount(line_cap, minlength=num_caps)
+    keep = dep_count[line_cap] >= min_support
+    return line_val[keep], line_cap[keep], dep_count
+
+
+def prepare_join_lines(triples, min_support: int, projections: str,
+                       use_frequent_condition_filter: bool, use_ars: bool,
+                       stats) -> dict | None:
+    """Phase A of the approximate strategies: join-line rows + capture table.
+
+    triples: (N, 3) int32 tensor on the run's device.  Returns None when the
+    plan is trivially empty, else the host dict of state.HOST_FIELDS: the
+    (value, capture)-sorted frequent join-line rows ``line_val_h`` /
+    ``line_cap_h``, the capture table ``cap_code/cap_v1/cap_v2``, per-capture
+    exact supports ``dep_count`` (int64 numpy arrays) and ``num_caps``.
+    """
+    n = triples.shape[0]
+    if n == 0 or not any(ch in projections for ch in "spo"):
+        return None
+    line_val, line_cap, code, v1, v2, num_caps = _stage_candidates(
+        triples, min_support, projections=projections,
+        use_fc_filter=use_frequent_condition_filter, use_ars=use_ars)
+    n_rows = line_val.shape[0]
+    if n_rows == 0:
+        return None
+    line_val, line_cap, dep_count = _stage_capture_filter(
+        line_val, line_cap, num_caps, min_support)
+    n_keep = line_val.shape[0]
+    if n_keep == 0 or num_caps == 0:
+        return None
+
+    def host(t):
+        return t.cpu().numpy().astype(np.int64)
+
+    state = dict(line_val_h=host(line_val), line_cap_h=host(line_cap),
+                 cap_code=host(code), cap_v1=host(v1), cap_v2=host(v2),
+                 dep_count=host(dep_count), num_caps=num_caps)
+    metrics.set_many(stats, n_triples=n, n_line_rows=n_rows,
+                     n_frequent_rows=n_keep, n_captures=num_caps,
+                     total_pairs=0)
+    return state
 
 
 def _stage_membership(line_gid, cap_id, valid, min_support: int, *,
@@ -70,6 +149,13 @@ def _fit(arr, length: int):
     if arr.shape[0] >= length:
         return arr[:length]
     return torch.nn.functional.pad(arr, (0, length - arr.shape[0]))
+
+
+def triples_on(triples, device) -> torch.Tensor:
+    """An (N, 3) numpy array or tensor of id triples as int32 on `device`."""
+    if not isinstance(triples, torch.Tensor):
+        triples = torch.as_tensor(np.asarray(triples, np.int32))
+    return triples.to(device=device, dtype=torch.int32)
 
 
 def filter_ar_implied_cinds(table: CindTable, mined_rules) -> CindTable:
@@ -172,10 +258,7 @@ def discover(triples, min_support: int, projections: str = "spo",
     if pair_backend not in ("auto", "matmul"):
         raise ValueError(f"pair_backend {pair_backend!r} is not ported yet; "
                          f"the port runs the dense sweep ('auto' or 'matmul')")
-    dev = devices.resolve(device)
-    triples = torch.as_tensor(np.asarray(triples, np.int32)
-                              if not isinstance(triples, torch.Tensor)
-                              else triples).to(device=dev, dtype=torch.int32)
+    triples = triples_on(triples, devices.resolve(device))
     if triples.shape[0] == 0 or not any(ch in projections for ch in "spo"):
         return CindTable.empty()
     min_support = max(int(min_support), 1)

@@ -14,6 +14,11 @@ def gauge_set(stats: dict | None, key: str, v) -> None:
         stats[key] = v
 
 
+def counter_add(stats: dict | None, key: str, n=1) -> None:
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
+
+
 def set_many(stats: dict | None, **kv) -> None:
     if stats is not None:
         stats.update(kv)

@@ -26,10 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
-# C signature of each kernel's launcher: (symbol, argtypes).
+# C signatures of each library's launchers: {symbol: argtypes}.
 SIGNATURES = {
-    "fused_cind": ("fused_cind_launch",
-                   [_P, _LL, _P, _LL] + [_P] * 11 + [_I] * 4 + [_P, _P, _P]),
+    "fused_cind": {"fused_cind_launch":
+                   [_P, _LL, _P, _LL] + [_P] * 11 + [_I] * 4 + [_P, _P, _P]},
+    "contains": {"contains_launch": [_P] * 4 + [_I] * 3 + [_P],
+                 "repeat_probe_launch": [_P, _P, _I, _I, _P],
+                 "pipeline_probe_launch": [_P, _P, _I, _P]},
 }
 
 
@@ -82,10 +85,10 @@ def load(name: str):
     if lib is None:
         build((name,))
         lib = ctypes.CDLL(str(library_path(name)))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p

@@ -27,6 +27,9 @@ CPU_M_BUDGET_BYTES = 6 << 30
 # Row padding granule of M and column granule (every dep tile is a multiple).
 LINE_MULT = 256
 CAP_MULT = 128
+# Widest capture axis the dense verification of the approximate strategies
+# takes (the JAX package's one-shot ceiling, allatonce.SINGLE_SHOT_C).
+SINGLE_SHOT_C = 16384
 # Dep columns one kernel launch covers at most: the sweep joins adjacent
 # scheduled tiles up to this width, so a narrow plan tile still fills the card.
 LAUNCH_COLS = 1024
@@ -155,18 +158,40 @@ def build_membership(line_gid, cap_id, valid, *, l_pad: int, c_pad: int):
 
 def pack_bool(x):
     """(R, C) bool/0-1 -> (R, ceil(C/32)) int32 words, little bit order per word:
-    bit r of word w is column 32 w + r (the uint32 words held as int32)."""
+    bit r of word w is column 32 w + r (the uint32 words held as int32).  One
+    int32 pass per bit position, so no temporary is wider than the words."""
     r, c = x.shape
-    x = x.to(torch.int64)
     if c % 32:
-        x = torch.nn.functional.pad(x, (0, 32 - c % 32))
-        c = x.shape[1]
-    lanes = x.reshape(r, c // 32, 32)
-    weights = torch.ones(32, dtype=torch.int64, device=x.device) \
-        << torch.arange(32, device=x.device)
-    words = (lanes * weights).sum(dim=2)
-    return torch.where(words >= 1 << 31, words - (1 << 32), words) \
-        .to(torch.int32)
+        x = torch.nn.functional.pad(x.to(torch.uint8), (0, 32 - c % 32))
+    lanes = x.reshape(r, -1, 32)
+    words = torch.zeros(lanes.shape[:2], dtype=torch.int32, device=x.device)
+    for b in range(32):
+        words |= lanes[:, :, b].to(torch.int32) << b
+    return words
+
+
+def cooc_dot(a, b):
+    """Exact (M, N) int32 product ``a @ b.T`` of 0/1 int8 operands a (M, K) and
+    b (N, K), both contiguous along K.
+
+    A plain product outside any kernel (the JAX package leaves its twin to XLA):
+    ``torch._int_mm`` on the card (int8 in, int32 out; it takes M > 16 and K, N
+    multiples of 8, and ``b.T`` is the column-major operand it wants), a float64
+    widening on the CPU (exact: every count is at most K < 2^53).
+    """
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.dim() != 2 \
+            or b.dim() != 2 or a.shape[1] != b.shape[1]:
+        raise ValueError(f"cooc_dot takes int8 (M, K) and (N, K), got "
+                         f"{tuple(a.shape)} {a.dtype} and {tuple(b.shape)} "
+                         f"{b.dtype}")
+    if a.device.type == "cuda":
+        (m, k), n = a.shape, b.shape[0]
+        if m <= 16 or k % 8 or n % 8 or not a.is_contiguous() \
+                or not b.is_contiguous():
+            raise ValueError(f"torch._int_mm needs M > 16, K and N multiples "
+                             f"of 8 and contiguous operands: M={m} K={k} N={n}")
+        return torch._int_mm(a, b.T)
+    return (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.int32)
 
 
 def stage_block_counts(m, *, kl: int, tile: int):

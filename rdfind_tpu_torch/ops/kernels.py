@@ -10,6 +10,12 @@ K1 ``fused_cind_blocks`` replaces ``rdfind_tpu/ops/pallas_kernels.py:
 fused_cind_blocks``: one (tile x ref_chunk) block of the dense CIND sweep, with the
 co-occurrence counts summed over the scheduled line blocks only and the CIND
 verdict packed to 32-bit words (``cooc.pack_bool``'s layout).
+
+K2 ``packed_contains_matrix`` replaces ``pallas_kernels.packed_contains_matrix``:
+the Bloom containment test of the approximate strategies on packed words.  P1
+``repeat_probe`` and P2 ``pipeline_probe`` replace the TPU compiler probes
+``_repeat_is_tile`` and ``emit_pipeline_supported``; they are built into K2's
+library and ``check_contains_library`` runs both before a candidate pass.
 """
 
 from __future__ import annotations
@@ -21,8 +27,11 @@ from . import build, cooc
 
 CIND_BLOCK_D = 128
 CIND_BLOCK_R = 128
+CONTAINS_BLOCK_D = 64
+CONTAINS_BLOCK_R = 64
 
-LAUNCHES = {"fused_cind_blocks": 0}
+LAUNCHES = {"fused_cind_blocks": 0, "packed_contains_matrix": 0,
+            "repeat_probe": 0, "pipeline_probe": 0}
 
 
 def reset_launches() -> None:
@@ -158,3 +167,139 @@ def fused_cind_blocks_plain(m_dep, m, sup_col, ok_col, gid_col, dcode_col,
         row(rv1_row) == col(dv1_col), row(rv1_row) == col(dv2_col))
     v = is_cind & ~implied
     return cooc.pack_bool(v), v.sum(dim=1, dtype=torch.int32)
+
+
+def _check_device(name: str, *tensors) -> torch.device:
+    dev = tensors[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all operands must be on one device")
+    return dev
+
+
+def _launch(lib, name: str, fn, *args) -> None:
+    """Call a launcher of the contains library on the current stream and raise
+    on a non-zero status; count the launch."""
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           + lib.contains_error_string(err).decode())
+    LAUNCHES[name] += 1
+
+
+def packed_contains_matrix(sketch_packed, ref_packed, ref_popc):
+    """(D, R) uint8 containment matrix from packed words.
+
+    sketch_packed: (D, W) int32 packed dep sketches; ref_packed: (R, W) int32
+    packed ref bit sets; ref_popc: (R,) int32 set-bit count of each ref row (-1
+    marks a padded ref, which never matches).  out[d, r] = 1 iff
+    popcount(sketch[d] & ref[r]) == popc[r].  D and R are multiples of
+    CONTAINS_BLOCK_D / CONTAINS_BLOCK_R, W a power of two.
+    """
+    dev = _check_device("packed_contains_matrix", sketch_packed, ref_packed,
+                        ref_popc)
+    if sketch_packed.dtype != torch.int32 or ref_packed.dtype != torch.int32 \
+            or ref_popc.dtype != torch.int32:
+        raise TypeError("packed operands and popcounts must be int32")
+    if sketch_packed.dim() != 2 or ref_packed.dim() != 2 \
+            or sketch_packed.shape[1] != ref_packed.shape[1] \
+            or ref_popc.shape != (ref_packed.shape[0],):
+        raise ValueError(f"bad shapes {tuple(sketch_packed.shape)}, "
+                         f"{tuple(ref_packed.shape)}, {tuple(ref_popc.shape)}")
+    (d, w), r = sketch_packed.shape, ref_packed.shape[0]
+    if d % CONTAINS_BLOCK_D or r % CONTAINS_BLOCK_R or w <= 0 or w & (w - 1):
+        raise ValueError(f"D={d} and R={r} must be multiples of "
+                         f"{CONTAINS_BLOCK_D}/{CONTAINS_BLOCK_R}, W={w} a "
+                         f"power of two")
+    if not (sketch_packed.is_contiguous() and ref_packed.is_contiguous()
+            and ref_popc.is_contiguous()):
+        raise ValueError("packed_contains_matrix needs contiguous operands")
+    if dev.type == "cpu":
+        return packed_contains_matrix_plain(sketch_packed, ref_packed, ref_popc)
+    out = torch.empty((d, r), dtype=torch.uint8, device=dev)
+    lib = build.load("contains")
+    with torch.cuda.device(dev):
+        _launch(lib, "packed_contains_matrix", lib.contains_launch,
+                sketch_packed.data_ptr(), ref_packed.data_ptr(),
+                ref_popc.data_ptr(), out.data_ptr(), d, r, w)
+    return out
+
+
+def packed_contains_matrix_plain(sketch_packed, ref_packed, ref_popc,
+                                 ref_block: int = 1024):
+    """Plain PyTorch version of packed_contains_matrix (same inputs and output):
+    the AND, a popcount as ``(x >> s) & 1`` summed over the 32 shifts (an
+    arithmetic shift of int32 still yields bit s), then the compare.  Refs are
+    taken `ref_block` at a time to bound the (D, block, W) temporaries."""
+    d, r = sketch_packed.shape[0], ref_packed.shape[0]
+    out = torch.empty((d, r), dtype=torch.uint8, device=sketch_packed.device)
+    for lo in range(0, r, ref_block):
+        x = sketch_packed[:, None, :] & ref_packed[None, lo:lo + ref_block, :]
+        hits = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
+        for s in range(32):
+            hits += ((x >> s) & 1).sum(dim=2, dtype=torch.int32)
+        out[:, lo:lo + ref_block] = hits == ref_popc[None, lo:lo + ref_block]
+    return out
+
+
+def repeat_probe(x):
+    """(1, n) int32 -> (1, 2n): out[j] = x[j % n], the word order K2's staging
+    reads (P1, the counterpart of the TPU lane-order probe)."""
+    dev = _check_device("repeat_probe", x)
+    if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != 1 \
+            or not x.is_contiguous():
+        raise ValueError("repeat_probe takes a contiguous (1, n) int32 tensor")
+    if dev.type == "cpu":
+        return repeat_probe_plain(x)
+    out = torch.empty((1, 2 * x.shape[1]), dtype=torch.int32, device=dev)
+    lib = build.load("contains")
+    with torch.cuda.device(dev):
+        _launch(lib, "repeat_probe", lib.repeat_probe_launch, x.data_ptr(),
+                out.data_ptr(), x.shape[1], 2)
+    return out
+
+
+def repeat_probe_plain(x):
+    return x.repeat(1, 2)
+
+
+def pipeline_probe(x):
+    """(8 nb, 128) float32 -> (8, 128): the sum of its nb (8, 128) blocks,
+    streamed through shared memory by double-buffered cp.async copies (P2, the
+    counterpart of the TPU pipeline probe)."""
+    dev = _check_device("pipeline_probe", x)
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 128 \
+            or x.shape[0] % 8 or x.shape[0] == 0 or not x.is_contiguous() \
+            or x.data_ptr() % 16:
+        raise ValueError("pipeline_probe takes a contiguous, 16-byte aligned "
+                         "(8 nb, 128) float32 tensor")
+    if dev.type == "cpu":
+        return pipeline_probe_plain(x)
+    out = torch.empty((8, 128), dtype=torch.float32, device=dev)
+    lib = build.load("contains")
+    with torch.cuda.device(dev):
+        _launch(lib, "pipeline_probe", lib.pipeline_probe_launch,
+                x.data_ptr(), out.data_ptr(), x.shape[0] // 8)
+    return out
+
+
+def pipeline_probe_plain(x):
+    return x.reshape(-1, 8, 128).sum(dim=0)
+
+
+def check_contains_library(device) -> None:
+    """Run P1 and P2 on `device` at the TPU probes' shapes and raise unless they
+    give the expected answers ([0, 1, 0, 1] and 2.0 everywhere).
+
+    The JAX package probes once per process; the port probes at the start of
+    each candidate pass, so every run that launches K2 has just checked the
+    library it launches from (two launches of a few microseconds)."""
+    x = torch.arange(2, dtype=torch.int32, device=device).reshape(1, 2)
+    lanes = repeat_probe(x).cpu().tolist()
+    total = pipeline_probe(torch.ones((16, 128), dtype=torch.float32,
+                                      device=device))
+    if lanes != [[0, 1, 0, 1]] or not bool((total == 2.0).all()):
+        raise RuntimeError(f"contains library self-check failed: repeat probe "
+                           f"{lanes}, pipeline probe min {float(total.min())} "
+                           f"max {float(total.max())} (want 2.0)")

@@ -1,10 +1,10 @@
 """The RDFind CLI of the port: discover CINDs in RDF datasets on an NVIDIA GPU.
 
 The argument surface is the JAX package's CLI, restricted to what the port runs:
-strategy 0 on one device.  Any other flag or strategy is rejected with a message
-naming it; none is silently ignored.
+strategies 0, 2 and 3 on one device.  Any other flag or strategy is rejected with
+a message naming it; none is silently ignored.
 
-    python -m rdfind_tpu_torch.programs.rdfind data.nt --traversal-strategy 0 \\
+    python -m rdfind_tpu_torch.programs.rdfind data.nt --traversal-strategy 2 \\
         --support 10 --output cinds.txt [--device cpu]
 """
 
@@ -13,20 +13,21 @@ from __future__ import annotations
 import argparse
 import sys
 
-PORTED_STRATEGIES = (0,)
+PORTED_STRATEGIES = (0, 2, 3)
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rdfind-torch",
         description="Discover Conditional Inclusion Dependencies in RDF datasets "
-                    "(PyTorch/CUDA port; strategy 0 on one device).")
+                    "(PyTorch/CUDA port; strategies 0, 2 and 3 on one device).")
     p.add_argument("inputs", nargs="+", help="input .nt/.nq[.gz] files or globs")
     p.add_argument("--support", type=int, default=10,
                    help="minimum support for CINDs (default 10)")
     p.add_argument("--traversal-strategy", type=int, default=1,
-                   help="0=all-at-once (the only strategy ported so far; the "
-                        "default 1 is rejected)")
+                   help="0=all-at-once, 2=approximate all-at-once, "
+                        "3=late-BB (1, the default, is not ported yet and is "
+                        "rejected)")
     p.add_argument("--projection", default="spo",
                    help="fields to project captures on (subset of 'spo')")
     p.add_argument("--use-fis", action="store_true",
@@ -52,7 +53,8 @@ def main(argv=None) -> int:
                      f"{' '.join(unknown)} (see ROADMAP.md)")
     if args.traversal_strategy not in PORTED_STRATEGIES:
         parser.error(f"--traversal-strategy {args.traversal_strategy} is not "
-                     f"ported yet; pass --traversal-strategy 0 (see ROADMAP.md)")
+                     f"ported yet; pass --traversal-strategy 0, 2 or 3 "
+                     f"(see ROADMAP.md)")
     if not args.projection or not set(args.projection) <= set("spo"):
         parser.error(f"--projection {args.projection!r} must be a non-empty "
                      f"subset of 'spo'")

@@ -1,7 +1,7 @@
 """The RDFind job driver of the port: read -> parse -> intern -> discover -> sink.
 
 Thin: the Python ingest (no native parser, prefixes or asciify yet), single-device
-strategy 0, and the output file in the JAX package's format (sorted
+strategies 0, 2 and 3, and the output file in the JAX package's format (sorted
 ``Cind.pretty()`` lines).
 """
 
@@ -15,10 +15,12 @@ import numpy as np
 from ..data import CindTable
 from ..dictionary import Dictionary, intern_triples
 from ..io import ntriples, reader
-from ..models import allatonce
+from ..models import allatonce, approximate, late_bb
 
-# Strategy ids follow the reference: 0 = all-at-once.  The others are not ported.
-STRATEGIES = {0: allatonce.discover}
+# Strategy ids follow the reference: 0 = all-at-once, 2 = approximate
+# all-at-once, 3 = late-BB.  Strategy 1 (small-to-large) is not ported.
+STRATEGIES = {0: allatonce.discover, 2: approximate.discover,
+              3: late_bb.discover}
 
 
 @dataclasses.dataclass

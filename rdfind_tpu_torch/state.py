@@ -21,7 +21,18 @@ STAGE_DTYPES = {
     "cap_v2": torch.int32,
     "dep_count": torch.int32,
     "m": torch.int8,
+    # Packed Bloom words (uint32 bit patterns, held as int32) and popcounts.
+    "sketches": torch.int32,
+    "ref_packed": torch.int32,
+    "ref_popc": torch.int32,
 }
+PACKED_FIELDS = ("sketches", "ref_packed")
+
+# The host dict of phase A (models/allatonce.prepare_join_lines): int64 arrays
+# of the (value, capture)-sorted frequent join-line rows and of the capture
+# table, plus the scalar num_caps.
+HOST_FIELDS = ("line_val_h", "line_cap_h", "cap_code", "cap_v1", "cap_v2",
+               "dep_count")
 
 
 def triples_to_device(triples, device) -> torch.Tensor:
@@ -37,14 +48,16 @@ def stage_state_to_device(state: dict, device) -> dict:
 
     Keys are those of STAGE_DTYPES: the per-candidate ``line_gid``, ``cap_id``,
     ``valid``; the capture table ``cap_code``/``cap_v1``/``cap_v2``; the
-    per-capture ``dep_count``; and the membership matrix ``m`` (any 0/1 array,
-    e.g. the reference's bf16 one).  Values are checked to survive the cast.
+    per-capture ``dep_count``; the membership matrix ``m`` (any 0/1 array,
+    e.g. the reference's bf16 one); the packed Bloom words ``sketches`` and
+    ``ref_packed`` (uint32 words reinterpreted bit for bit as int32) and the
+    ``ref_popc`` popcounts.  Values are checked to survive the cast.
     """
     out = {}
     for key, arr in state.items():
         if key not in STAGE_DTYPES:
             raise KeyError(f"unknown stage-state field {key!r}")
-        a = np.asarray(arr)
+        a = np.array(arr)  # a writable copy, whatever the source
         if key == "m":
             a = np.asarray(a, np.float32)
             if not np.isin(a, (0.0, 1.0)).all():
@@ -52,6 +65,8 @@ def stage_state_to_device(state: dict, device) -> dict:
             a = a.astype(np.int8)
         elif key == "valid":
             a = a.astype(bool)
+        elif key in PACKED_FIELDS and a.dtype == np.uint32:
+            a = np.ascontiguousarray(a).view(np.int32)
         else:
             if a.size and (a.min() < np.iinfo(np.int32).min
                            or a.max() > np.iinfo(np.int32).max):
@@ -59,4 +74,13 @@ def stage_state_to_device(state: dict, device) -> dict:
             a = a.astype(np.int32)
         out[key] = torch.as_tensor(a).to(device=device,
                                          dtype=STAGE_DTYPES[key])
+    return out
+
+
+def phase_a_state(state: dict) -> dict:
+    """The JAX package's phase-A dict (its prepare_join_lines) as the port's:
+    the HOST_FIELDS as int64 numpy arrays and ``num_caps``; other keys are
+    dropped."""
+    out = {key: np.asarray(state[key]).astype(np.int64) for key in HOST_FIELDS}
+    out["num_caps"] = int(state["num_caps"])
     return out

@@ -29,11 +29,35 @@ def nt_file(tmp_path_factory):
     return str(path)
 
 
+@pytest.fixture(scope="module")
+def small_nt_file(tmp_path_factory):
+    """Fewer triples: without --use-fis every capture is kept, and strategies
+    2 and 3 then build a sketch for each."""
+    path = tmp_path_factory.mktemp("nt") / "small.nt"
+    write_nt(path, synth.generate_triples(300, seed=4, n_predicates=6,
+                                          n_entities=40))
+    return str(path)
+
+
 @pytest.mark.parametrize("flags", [
     [], ["--use-fis"], ["--use-fis", "--use-ars", "--clean-implied"],
     ["--projection", "po", "--clean-implied"]])
 def test_output_file_is_byte_identical(nt_file, tmp_path, flags):
     common = [nt_file, "--support", "3", "--traversal-strategy", "0", *flags]
+    out_j, out_t = tmp_path / "jax.txt", tmp_path / "torch.txt"
+    assert jcli.main(common + ["--output", str(out_j)]) == 0
+    assert tcli.main(common + ["--output", str(out_t), "--device", "cpu"]) == 0
+    want = out_j.read_bytes()
+    assert want.count(b"\n") > 0
+    assert out_t.read_bytes() == want
+
+
+@pytest.mark.parametrize("flags", [[], ["--use-fis", "--clean-implied"]])
+@pytest.mark.parametrize("strategy", ["2", "3"])
+def test_approximate_strategies_write_the_jax_file(small_nt_file, tmp_path,
+                                                   strategy, flags):
+    common = [small_nt_file, "--support", "3", "--traversal-strategy", strategy,
+              *flags]
     out_j, out_t = tmp_path / "jax.txt", tmp_path / "torch.txt"
     assert jcli.main(common + ["--output", str(out_j)]) == 0
     assert tcli.main(common + ["--output", str(out_t), "--device", "cpu"]) == 0

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import rdfind_tpu_torch
-from rdfind_tpu_torch.ops import cooc, kernels
+from rdfind_tpu_torch.ops import cooc, kernels, sketch
 from rdfind_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -73,3 +73,74 @@ def test_discover_on_cuda_equals_cpu(cuda):
     want = rdfind_tpu_torch.discover(triples, 3, strategy=0, device="cpu",
                                      clean_implied=True)
     assert len(want) > 0 and got.to_rows() == want.to_rows()
+
+
+def _contains_inputs(seed, d, r, bits, n_pad, device):
+    """Dep sketches holding the bit sets of a few refs each (many containments),
+    random words elsewhere; the last n_pad refs are padding (popc -1)."""
+    rng = np.random.default_rng(seed)
+    words, popc = sketch.pack_ref_bits(
+        torch.as_tensor(rng.integers(0, 1 << 20, r).astype(np.int32)),
+        bits=bits, num_hashes=4)
+    sk = torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (d, bits // 32))
+                         .astype(np.int32))
+    sk &= torch.as_tensor(rng.integers(-(1 << 31), 1 << 31, (d, bits // 32))
+                          .astype(np.int32))
+    for i in range(d):
+        for j in rng.choice(r, 3, replace=False):
+            sk[i] |= words[j]
+    if n_pad:
+        words[-n_pad:] = 0
+        popc[-n_pad:] = -1
+    return sk.to(device), words.to(device), popc.to(device)
+
+
+@pytest.mark.parametrize("d,r,bits,n_pad", [
+    (64, 64, 32, 0),        # W = 1
+    (128, 320, 2048, 64),   # W = 64, padded refs
+    (256, 128, 16384, 0),   # W = 512: several word chunks
+    (192, 4096, 2048, 0),   # many CTAs
+])
+def test_k2_kernel_matches_plain(cuda, d, r, bits, n_pad):
+    sk, words, popc = _contains_inputs(d + r, d, r, bits, n_pad, cuda)
+    kernels.reset_launches()
+    got = kernels.packed_contains_matrix(sk, words, popc)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["packed_contains_matrix"] == 1
+    want = kernels.packed_contains_matrix_plain(sk, words, popc)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < want.numel()
+    if n_pad:
+        assert not bool(got[:, -n_pad:].any())
+
+
+def test_probes_match_plain(cuda):
+    kernels.reset_launches()
+    x = torch.arange(5, dtype=torch.int32, device=cuda).reshape(1, 5)
+    assert torch.equal(kernels.repeat_probe(x), kernels.repeat_probe_plain(x))
+    # Integer-valued floats: every sum is exact in either order.
+    y = torch.randint(-100, 100, (48, 128), device=cuda).float()
+    assert torch.equal(kernels.pipeline_probe(y),
+                       kernels.pipeline_probe_plain(y))
+    kernels.check_contains_library(cuda)
+    assert kernels.LAUNCHES["repeat_probe"] == 2
+    assert kernels.LAUNCHES["pipeline_probe"] == 2
+
+
+@pytest.mark.parametrize("strategy", [2, 3])
+def test_approximate_strategies_on_cuda_equal_cpu(cuda, strategy):
+    triples = synth.generate_triples(3000, seed=5)
+    kernels.reset_launches()
+    stats = {}
+    got = rdfind_tpu_torch.discover(triples, 3, strategy=strategy, device=cuda,
+                                    stats=stats)
+    assert kernels.LAUNCHES["packed_contains_matrix"] > 0
+    assert kernels.LAUNCHES["repeat_probe"] == 1
+    assert kernels.LAUNCHES["pipeline_probe"] == 1
+    cpu_stats = {}
+    want = rdfind_tpu_torch.discover(triples, 3, strategy=strategy,
+                                     device="cpu", stats=cpu_stats)
+    assert len(want) > 0 and got.to_rows() == want.to_rows()
+    for key in ("n_sketch_candidates", "n_round1_candidates",
+                "n_round2_candidates"):
+        assert stats.get(key) == cpu_stats.get(key), key

@@ -119,4 +119,12 @@ def test_kernel_wrapper_refuses_other_devices():
             torch.zeros(1, dtype=torch.int32, device="meta"),
             torch.ones(1, dtype=torch.int32, device="meta"),
             ref_lo=0, ref_chunk=128)
-    assert kernels.LAUNCHES["fused_cind_blocks"] == 0
+    words = torch.zeros((64, 64), dtype=torch.int32, device="meta")
+    popc = torch.zeros(64, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.packed_contains_matrix(words, words, popc)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.repeat_probe(popc.reshape(1, 64))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        kernels.pipeline_probe(torch.zeros((16, 128), device="meta"))
+    assert all(n == 0 for n in kernels.LAUNCHES.values())

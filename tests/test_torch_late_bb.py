@@ -1,0 +1,76 @@
+"""Strategy 3 (LateBB) of the port against the JAX package's, on the CPU: rows,
+digests and the round statistics must be equal, bit for bit; with clean_implied
+the output must equal strategy 0's."""
+
+import jax
+import pytest
+
+import rdfind_tpu_torch
+from rdfind_tpu.models import late_bb as jlate_bb
+from rdfind_tpu.obs import integrity as jintegrity
+from rdfind_tpu_torch.models import allatonce as tallatonce
+from rdfind_tpu_torch.models import late_bb as tlate_bb
+from rdfind_tpu_torch.obs import integrity as tintegrity
+from rdfind_tpu_torch.ops import cooc as tcooc
+from rdfind_tpu_torch.utils import synth
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_programs():
+    """Drop the XLA programs compiled in and before this module: each keeps
+    executable memory mappings, and a test process that gathers too many hits
+    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
+def _triples(seed):
+    return synth.generate_triples(700, seed=seed, n_predicates=8,
+                                  n_entities=80)
+
+
+ROUND_STATS = ("n_round1_candidates", "n_round1_cinds", "n_round2_candidates",
+               "n_round2_cinds", "pairs_round1", "pairs_round2", "total_pairs",
+               "pair_backend")
+
+CASES = [
+    (41, 2, {}),
+    (42, 3, dict(clean_implied=True)),
+    (43, 3, dict(use_association_rules=True)),
+    (44, 2, dict(use_frequent_condition_filter=False, sketch_bits=512)),
+]
+
+
+@pytest.mark.parametrize("seed,min_support,kw", CASES)
+def test_discover_matches_jax(seed, min_support, kw):
+    triples = _triples(seed)
+    want_stats, got_stats = {}, {}
+    want = jlate_bb.discover(triples, min_support, stats=want_stats, **kw)
+    got = tlate_bb.discover(triples, min_support, stats=got_stats,
+                            device="cpu", **kw)
+    assert len(want) > 0 and want_stats["n_round2_candidates"] > 0
+    assert got.to_rows() == want.to_rows()
+    assert len(got) == len(want)
+    assert tintegrity.digest_table(got) == jintegrity.digest_table(want)
+    for key in ROUND_STATS:
+        assert got_stats[key] == want_stats[key], key
+
+
+@pytest.mark.parametrize("seed", [45, 46])
+def test_clean_late_bb_equals_clean_strategy0(seed):
+    triples = _triples(seed)
+    got = rdfind_tpu_torch.discover(triples, 2, strategy=3, device="cpu",
+                                    clean_implied=True)
+    want = rdfind_tpu_torch.discover(triples, 2, strategy=0, device="cpu",
+                                     clean_implied=True)
+    assert len(want) > 0 and got.to_rows() == want.to_rows()
+
+
+def test_chunked_backend_and_oversized_verification_raise(monkeypatch):
+    with pytest.raises(ValueError, match="queue 1 item 1"):
+        tlate_bb.discover(_triples(41), 2, device="cpu",
+                          pair_backend="chunked")
+    monkeypatch.setattr(tcooc, "SINGLE_SHOT_C", 64)
+    with pytest.raises(tallatonce.DensePlanTooLarge, match="queue 1 item 1"):
+        tlate_bb.discover(_triples(41), 2, device="cpu", sketch_bits=256)
