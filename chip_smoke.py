@@ -9,13 +9,16 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
 
 1. the card (``nvidia-smi`` name and power limit, torch's device name);
 2. the build of every kernel library from ``rdfind_tpu_torch/csrc`` with nvcc
-   (sm_90a), one nvcc process per source, all started together;
+   (sm_90a), one nvcc process per source, all started together, with ptxas'
+   registers, shared memory and spills for every kernel;
 3. each kernel against its plain PyTorch version on the card, bit-exact, at the
-   main paths' shapes and at edge cases, with its time, the plain version's time,
-   the time of one library call for the same function (a yardstick the port
-   never calls) and the least time the card could take (``bound_ms``): K1
-   (strategy 0's fused sweep), K2 (the Bloom containment of strategies 2 and 3,
-   on the sketches the port builds) and the probes P1 and P2;
+   main paths' shapes and at edge cases, with its time on the device, the plain
+   version's time, the time of one library call for the same function (a
+   yardstick the port never calls), the least time the card could take
+   (``bound_ms``), the rate reached (``tops``) and ``share_of_bound``: K1
+   (strategy 0's fused sweep on the K-major membership Mᵀ), K2 (the Bloom
+   containment of strategies 2 and 3, on the sketches the port builds) and the
+   probes P1 and P2;
 4. the main paths, ``rdfind_tpu_torch.discover(..., strategy=0|2|3)``, on the
    headline workload and on the real-size workload, with the kernel launch
    counts of each run; the CIND count and output digest of each must equal the
@@ -36,6 +39,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -106,24 +110,73 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds of fn() over `reps` calls (CUDA events on the card)."""
+# Cycles of the pre-fill sleep per queued call: ~0.1 ms at the card's clock,
+# more than the host takes to enqueue one wrapper call.
+SLEEP_CYCLES_PER_CALL = 200_000
+
+
+def time_ms(fn, device, reps: int, warmup: int = 1,
+            device_only: bool = False) -> float:
+    """Mean milliseconds of fn() over `reps` calls (CUDA events on the card).
+
+    With ``device_only`` the stream first runs a sleep kernel long enough for
+    the host to enqueue all `reps` calls behind it, so the events time the
+    device's work back to back and not the host's enqueue rate (a wrapper call
+    costs tens of microseconds of host time, more than a small kernel runs).
+    Only for functions that never sync the host."""
     for _ in range(warmup):
         fn()
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if device_only:
+        torch.cuda._sleep(SLEEP_CYCLES_PER_CALL * (reps + 10))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def rate_fields(ops: int, nbytes: int, ms: float) -> dict:
+    """bound_ms (the larger of the operations and bytes floors at the card's
+    published peaks), what bounds it, the rate reached and the share of the
+    bound that `ms` achieves."""
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+    bound = max(t_ops, t_bytes) * 1e3
+    return dict(bound_ms=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                tops=ops / ms / 1e9, share_of_bound=bound / ms)
+
+
+KERNEL_NAMES = ("fused_cind_kernel", "contains_kernel", "repeat_probe_kernel",
+                "pipeline_probe_kernel")
+
+
+def ptxas_report(log: str) -> list:
+    """One entry per compiled kernel from nvcc's ``-Xptxas -v`` output: its
+    registers, static shared memory and spill bytes."""
+    out = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name = next((k for k in KERNEL_NAMES if k in m.group(1)),
+                        m.group(1))
+            out.append(dict(kernel=name, registers=None, smem_bytes=0,
+                            spill_stores=None, spill_loads=None))
+        elif out:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                out[-1].update(spill_stores=int(m.group(1)),
+                               spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[-1]["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", ln)
+                out[-1]["smem_bytes"] = int(m.group(1)) if m else 0
+    return out
 
 
 def prepare(triples, support: int, device) -> dict:
@@ -133,25 +186,25 @@ def prepare(triples, support: int, device) -> dict:
      num_caps) = allatonce._stage_prepare(t, support, projections="spo",
                                           use_fc_filter=True)
     plan = cooc.dense_plan(n_lines, num_caps, device)
-    m, dep_count, _ = allatonce._stage_membership(
+    m_t, dep_count, _ = allatonce._stage_membership(
         line_gid, cap_id, valid, support, l_pad=plan.l_pad, c_pad=plan.c_pad)
     cols, rows = cooc.sweep_operands(
         dep_count, allatonce._fit(code, plan.c_pad),
         allatonce._fit(v1, plan.c_pad), allatonce._fit(v2, plan.c_pad), support)
-    counts = cooc.stage_block_counts(m, kl=plan.line_block,
+    counts = cooc.stage_block_counts(m_t, kl=plan.line_block,
                                      tile=plan.tile).cpu().numpy()
-    return dict(m=m, plan=plan, cols=cols, rows=rows, counts=counts,
+    return dict(m=m_t, plan=plan, cols=cols, rows=rows, counts=counts,
                 launches=cooc.sweep_launches(counts, plan.dep_tile_starts,
                                              plan.tile))
 
 
 def k1_case(name, m, cols, rows, lo, width, block_ids, n_real, ref_lo,
             ref_chunk) -> dict:
-    """Arguments of one fused_cind_blocks call: dep columns [lo, lo + width),
-    ref columns [ref_lo, ref_lo + ref_chunk), the given block schedule."""
+    """Arguments of one fused_cind_blocks call on Mᵀ `m`: dep rows [lo, lo +
+    width), ref rows [ref_lo, ref_lo + ref_chunk), the given block schedule."""
     dev = m.device
     sl = slice(lo, lo + width)
-    args = (m[:, sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
+    args = (m[sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
             cols["code"][sl], cols["v1"][sl], cols["v2"][sl], rows["ridx"],
             rows["code"], rows["v1"],
             torch.as_tensor(np.asarray(block_ids, np.int32)).to(dev),
@@ -170,9 +223,9 @@ def equal_code_case(device) -> dict:
     code = rng.choice([17, 35], c_pad).astype(np.int32)
     v1 = rng.integers(0, 3, c_pad).astype(np.int32)
     v2 = rng.integers(0, 3, c_pad).astype(np.int32)
-    mt = torch.as_tensor(m).to(device)
+    mt = torch.as_tensor(m.T.copy()).to(device)
     cols, rows = cooc.sweep_operands(
-        mt.sum(dim=0, dtype=torch.int32), torch.as_tensor(code).to(device),
+        mt.sum(dim=1, dtype=torch.int32), torch.as_tensor(code).to(device),
         torch.as_tensor(v1).to(device), torch.as_tensor(v2).to(device), 1)
     kl = cooc.line_block_for(l_pad)
     return k1_case("equal_code_implied", mt, cols, rows, 0, 256,
@@ -212,7 +265,7 @@ def work_of(case) -> tuple:
     lines of both operands read once, the columns, and the outputs written once."""
     m_dep = case["args"][0]
     n_real = int(case["args"][12][0])
-    l_pad, tile = m_dep.shape
+    tile, l_pad = m_dep.shape
     ref_chunk = case["kw"]["ref_chunk"]
     k = n_real * cooc.line_block_for(l_pad)
     ops = 2 * tile * ref_chunk * k
@@ -228,12 +281,12 @@ def library_product(case):
     block_ids, n_real = case["args"][11], int(case["args"][12][0])
     if n_real == 0:
         return None
-    kl = cooc.line_block_for(m.shape[0])
+    kl = cooc.line_block_for(m.shape[1])
     lines = (block_ids[:n_real].long()[:, None] * kl
              + torch.arange(kl, device=m.device)[None, :]).reshape(-1)
     ref_lo, ref_chunk = case["kw"]["ref_lo"], case["kw"]["ref_chunk"]
-    a = m_dep[lines].T.contiguous()
-    b = m[lines, ref_lo:ref_lo + ref_chunk].T.contiguous().T
+    a = m_dep[:, lines].contiguous()
+    b = m[ref_lo:ref_lo + ref_chunk, lines].contiguous().T
     return lambda: torch._int_mm(a, b)
 
 
@@ -259,23 +312,25 @@ def run_k1_cases(cases, device) -> list:
         err = compare_k1(args, kw)
         ops, nbytes = work_of(case)
         big = ops > 1e12
+        reps = 5 if big else 20
         k_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw), device,
-                       reps=5 if big else 20)
+                       reps=reps, device_only=True)
+        call_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw),
+                          device, reps=reps)
         p_ms = time_ms(lambda: kernels.fused_cind_blocks_plain(*args, **kw),
                        device, reps=2 if big else 5)
         lib = library_product(case)
-        lib_ms = None if lib is None else time_ms(lib, device,
-                                                  reps=5 if big else 20)
-        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
+        lib_ms = None if lib is None else time_ms(lib, device, reps=reps,
+                                                  device_only=True)
         row = dict(phase="kernel", kernel="fused_cind_blocks", case=case["name"],
-                   l_pad=args[0].shape[0], tile=args[0].shape[1],
+                   l_pad=args[0].shape[1], tile=args[0].shape[0],
                    ref_lo=kw["ref_lo"], ref_chunk=kw["ref_chunk"],
                    nk=args[11].numel(), n_real=int(args[12][0]),
                    ops=ops, bytes=nbytes, match=True, max_abs_err=err,
-                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   kernel_ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+                   library_ms=lib_ms,
                    library="torch._int_mm, the int8 product alone",
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   **rate_fields(ops, nbytes, k_ms))
         emit(row)
         rows.append(row)
     return rows
@@ -356,11 +411,12 @@ def compare_k2(args) -> int:
 
 
 def run_k2_cases(cases, device) -> list:
-    """Each case: bit-exact against the plain version, then timed.  The bound
-    counts K2's function as the TPU kernel does it, 2 D R bits operations at the
-    int8 tensor-core peak, against the packed inputs read once and the uint8
-    output written once; the library yardstick is torch._int_mm of the unpacked
-    0/1 planes, (D x bits) @ (bits x R), the product alone."""
+    """Each case: bit-exact against the plain version, then timed on the
+    device.  The bound counts K2's function as the TPU kernel does it, 2 D R
+    bits operations at the int8 tensor-core peak, against the packed inputs read
+    once and the uint8 output written once; the library yardstick is
+    torch._int_mm of the unpacked 0/1 planes, (D x bits) @ (bits x R), the
+    product alone."""
     rows = []
     for case in cases:
         args = case["args"]
@@ -369,24 +425,30 @@ def run_k2_cases(cases, device) -> list:
         bits = 32 * w
         err = compare_k2(args)
         k_ms = time_ms(lambda: kernels.packed_contains_matrix(*args), device,
-                       reps=50)
+                       reps=50, device_only=True)
+        call_ms = time_ms(lambda: kernels.packed_contains_matrix(*args),
+                          device, reps=50)
         p_ms = time_ms(lambda: kernels.packed_contains_matrix_plain(*args),
                        device, reps=3)
         a = sketch.unpack_planes(sk).to(torch.int8)
         b = sketch.unpack_planes(words).to(torch.int8)
-        lib_ms = time_ms(lambda: torch._int_mm(a, b.T), device, reps=50)
+        lib_ms = lib_call_ms = None
+        if d > 16:  # torch._int_mm takes M > 16
+            lib_ms = time_ms(lambda: torch._int_mm(a, b.T), device, reps=50,
+                             device_only=True)
+            lib_call_ms = time_ms(lambda: torch._int_mm(a, b.T), device,
+                                  reps=50)
         del a, b
         ops = 2 * d * r * bits
         nbytes = 4 * (d + r) * w + 4 * r + d * r
-        t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES_PER_S
         row = dict(phase="kernel", kernel="packed_contains_matrix",
                    case=case["name"], d=d, r=r, w=w, ops=ops, bytes=nbytes,
                    hits=int(kernels.packed_contains_matrix(*args).sum()),
-                   match=True, max_abs_err=err, kernel_ms=k_ms, plain_ms=p_ms,
-                   library_ms=lib_ms,
+                   match=True, max_abs_err=err, kernel_ms=k_ms, call_ms=call_ms,
+                   plain_ms=p_ms, library_ms=lib_ms,
+                   library_call_ms=lib_call_ms,
                    library="torch._int_mm of the unpacked 0/1 planes",
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   **rate_fields(ops, nbytes, k_ms))
         emit(row)
         rows.append(row)
     return rows
@@ -415,9 +477,10 @@ def run_probe_cases(device) -> dict:
         row = dict(phase="kernel", kernel=name, case="tpu_probe_shape",
                    match=True, max_abs_err=err, result=got.flatten()[:4]
                    .tolist(), kernel_ms=time_ms(lambda: fn(arg), device,
-                                                reps=50),
+                                                reps=50, device_only=True),
+                   call_ms=time_ms(lambda: fn(arg), device, reps=50),
                    plain_ms=time_ms(lambda: plain(arg), device, reps=50),
-                   library_ms=time_ms(lib, device, reps=50),
+                   library_ms=time_ms(lib, device, reps=50, device_only=True),
                    bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
         emit(row)
         rows[name] = row
@@ -541,8 +604,10 @@ def main() -> int:
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               compiled=sorted(built), cached=sorted(set(build.SIGNATURES)
                                                     - set(built)),
-              ptxas=[ln.strip() for r in built.values()
-                     for ln in r["log"].splitlines() if "ptxas info" in ln]))
+              kernels=[k for name in build.SIGNATURES
+                       for k in ptxas_report(build.build_log(name))],
+              fused_cind_dynamic_smem_bytes=build.load("fused_cind")
+              .fused_cind_smem_bytes()))
 
     data = {name: (gen(), support) for name, gen, support in WORKLOADS}
     preps = {name: prepare(t, s, device) for name, (t, s) in data.items()}
@@ -609,7 +674,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k1_rows),
              ms=real["kernel_ms"], plain_ms=real["plain_ms"],
              bound_ms=real["bound_ms"], bound_by=real["bound_by"],
-             library_ms=real["library_ms"]),
+             library_ms=real["library_ms"], tops=real["tops"],
+             share_of_bound=real["share_of_bound"]),
         dict(name="packed_contains_matrix", route="cuda",
              source="rdfind_tpu_torch/csrc/contains.cu",
              replaces="rdfind_tpu/ops/pallas_kernels.py:336",
@@ -617,7 +683,8 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in k2_rows),
              ms=real2["kernel_ms"], plain_ms=real2["plain_ms"],
              bound_ms=real2["bound_ms"], bound_by=real2["bound_by"],
-             library_ms=real2["library_ms"]),
+             library_ms=real2["library_ms"], tops=real2["tops"],
+             share_of_bound=real2["share_of_bound"]),
     ]
     for name, replaces in (("repeat_probe", "pallas_kernels.py:113"),
                            ("pipeline_probe", "pallas_kernels.py:249")):

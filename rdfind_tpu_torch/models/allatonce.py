@@ -1,10 +1,10 @@
 """AllAtOnce traversal strategy (strategy 0) on a single device, dense path.
 
 One pass over the data: emit join candidates, group them into join lines, build the
-0/1 line x capture membership matrix M, and read every CIND off cooc = Mᵀ M with
-the fused sweep (ops/cooc.py, kernel K1).  The frequent-condition prefilter runs at
-emission; captures with fewer than min_support lines are dead columns of M that
-can never pass the CIND test.
+0/1 membership matrix as Mᵀ (captures x lines, the K-major layout of kernel K1),
+and read every CIND off cooc = Mᵀ M with the fused sweep (ops/cooc.py, K1).  The
+frequent-condition prefilter runs at emission; captures with fewer than
+min_support lines are dead rows of Mᵀ that can never pass the CIND test.
 
 Shapes are exact at every stage (PyTorch runs eagerly); the host reads a few
 scalars between stages, the set-bit index pairs of the verdict, and the final
@@ -131,17 +131,19 @@ def prepare_join_lines(triples, min_support: int, projections: str,
 
 def _stage_membership(line_gid, cap_id, valid, min_support: int, *,
                       l_pad: int, c_pad: int):
-    """Membership matrix + the aggregates that fall out of it.
+    """Membership matrix Mᵀ (captures x lines) + the aggregates that fall out
+    of it.
 
-    Returns (m, dep_count, lens): dep_count[c] = distinct join values containing
-    capture c (column sums); lens[l] = frequent captures in line l.
+    Returns (m_t, dep_count, lens): dep_count[c] = distinct join values
+    containing capture c (row sums of Mᵀ); lens[l] = frequent captures in line l
+    (column sums over the frequent rows).
     """
-    m = cooc.build_membership(line_gid, cap_id, valid, l_pad=l_pad,
-                              c_pad=c_pad)
-    dep_count = m.sum(dim=0, dtype=torch.int32)
+    m_t = cooc.build_membership(line_gid, cap_id, valid, l_pad=l_pad,
+                                c_pad=c_pad)
+    dep_count = m_t.sum(dim=1, dtype=torch.int32)
     freq_mask = (dep_count >= min_support).to(torch.int8)
-    lens = (m * freq_mask[None, :]).sum(dim=1, dtype=torch.int32)
-    return m, dep_count, lens
+    lens = (m_t * freq_mask[:, None]).sum(dim=0, dtype=torch.int32)
+    return m_t, dep_count, lens
 
 
 def _fit(arr, length: int):
@@ -193,14 +195,15 @@ def _discover_dense(triples, min_support: int, projections: str,
     metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
 
     with record_function("rdfind.membership"):
-        m, dep_count, lens = _stage_membership(
+        m_t, dep_count, lens = _stage_membership(
             line_gid, cap_id, cand_valid, min_support, l_pad=plan.l_pad,
             c_pad=plan.c_pad)
     with record_function("rdfind.sweep"):
         dep_id, ref_id, support = cooc.discover_pairs_dense(
-            m, dep_count, _fit(cap_code, plan.c_pad), _fit(cap_v1, plan.c_pad),
-            _fit(cap_v2, plan.c_pad), min_support, plan, stats=stats)
-    del m
+            m_t, dep_count, _fit(cap_code, plan.c_pad),
+            _fit(cap_v1, plan.c_pad), _fit(cap_v2, plan.c_pad), min_support,
+            plan, stats=stats)
+    del m_t
     lens_h = lens[:n_lines].cpu().numpy().astype(np.int64)
     code_h, v1_h, v2_h = (c.cpu().numpy() for c in (cap_code, cap_v1, cap_v2))
     dep_count_h = dep_count[:num_caps].cpu().numpy().astype(np.int64)

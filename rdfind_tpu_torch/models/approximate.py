@@ -174,12 +174,12 @@ def _dense_verify_counts(line_val_h, line_cap_h, num_caps, cand_dep, cand_ref,
         metrics.struct_set(stats, "dense_plan", plan.describe())
         metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
 
-    # Transposed (captures x lines), so that a dep tile is a row slice: both
-    # operands of the product are contiguous along the lines.
+    # Mᵀ (captures x lines): a dep tile is a row slice, and both operands of
+    # the product are contiguous along the lines.
     m_t = cooc.build_membership(
-        torch.as_tensor(lc).to(device), torch.as_tensor(line_gid).to(device),
-        torch.ones(n, dtype=torch.bool, device=device), l_pad=plan.c_pad,
-        c_pad=plan.l_pad)
+        torch.as_tensor(line_gid).to(device), torch.as_tensor(lc).to(device),
+        torch.ones(n, dtype=torch.bool, device=device), l_pad=plan.l_pad,
+        c_pad=plan.c_pad)
     # Candidates grouped by dep tile (_candidate_pairs emits them dep-ascending;
     # the sort keeps this function order-insensitive).  Every tile's gather is
     # issued first and all counts reach the host in one copy.

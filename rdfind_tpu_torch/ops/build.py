@@ -29,7 +29,9 @@ _I = ctypes.c_int
 # C signatures of each library's launchers: {symbol: argtypes}.
 SIGNATURES = {
     "fused_cind": {"fused_cind_launch":
-                   [_P, _LL, _P, _LL] + [_P] * 11 + [_I] * 4 + [_P, _P, _P]},
+                   [_P, _LL, _P, _LL, _LL] + [_P] * 11 + [_I] * 5
+                   + [_P, _P, _P],
+                   "fused_cind_smem_bytes": []},
     "contains": {"contains_launch": [_P] * 4 + [_I] * 3 + [_P],
                  "repeat_probe_launch": [_P, _P, _I, _I, _P],
                  "pipeline_probe_launch": [_P, _P, _I, _P]},
@@ -53,7 +55,8 @@ def library_path(name: str) -> Path:
 def build(names=tuple(SIGNATURES)) -> dict:
     """Compile every named kernel that is not built yet, all nvcc processes at
     once.  Returns {name: {"seconds": s, "log": nvcc output}} for what was
-    compiled; raises with nvcc's output when one fails."""
+    compiled; raises with nvcc's output when one fails.  The log is kept beside
+    the library (``build_log``)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -71,9 +74,16 @@ def build(names=tuple(SIGNATURES)) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[name] = {"seconds": time.perf_counter() - t0, "log": log}
     return report
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas' registers, shared memory and spills) from the
+    build of kernel `name`'s library."""
+    return library_path(name).with_suffix(".log").read_text()
 
 
 _LIBS: dict = {}

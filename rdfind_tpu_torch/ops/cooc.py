@@ -1,13 +1,16 @@
 """Dense co-occurrence sweep: the quadratic pair phase as a blocked int8 product.
 
 The CIND test ``cooc(d, r) == support(d)`` is read off the co-occurrence matrix
-cooc = Mᵀ M of the 0/1 line x capture membership matrix M.  M is int8 on every
-device and every product accumulates in int32 (or an exact float64 widening in the
-plain versions): one exact formulation.  The sweep walks dep tiles; for each it
-launches K1 (``kernels.fused_cind_blocks``), which sums the counts over the
-non-empty line blocks only and applies the verdict in its epilogue, so the count
-matrix never reaches device memory.  The packed verdict bits are then decoded to
-(dep, ref) index pairs on the device and only those reach the host.
+cooc = Mᵀ M of the 0/1 line x capture membership matrix M.  The port holds Mᵀ
+(captures x lines): a dep tile is a row slice, and both operands of every product
+are contiguous along the lines, the K-major layout the card's int8 tensor cores
+take.  Mᵀ is int8 on every device and every product accumulates in int32 (or an
+exact float64 widening in the plain versions): one exact formulation.  The sweep
+walks dep tiles; for each it launches K1 (``kernels.fused_cind_blocks``), which
+sums the counts over the non-empty line blocks only and applies the verdict in
+its epilogue, so the count matrix never reaches device memory.  The packed
+verdict bits are then decoded to (dep, ref) index pairs on the device and only
+those reach the host.
 """
 
 from __future__ import annotations
@@ -144,16 +147,17 @@ def dense_plan(n_lines: int, num_caps: int, device, tile: int = DEFAULT_TILE):
 
 
 def build_membership(line_gid, cap_id, valid, *, l_pad: int, c_pad: int):
-    """Scatter the valid (line, capture) rows into the (l_pad, c_pad) int8 0/1
-    matrix.  Rows are masked before the scatter; duplicates set the same 1."""
-    m = torch.zeros((l_pad, c_pad), dtype=torch.int8, device=line_gid.device)
+    """Scatter the valid (line, capture) rows into the (c_pad, l_pad) int8 0/1
+    matrix Mᵀ: row c holds capture c's lines.  Rows are masked before the
+    scatter; duplicates set the same 1."""
+    m_t = torch.zeros((c_pad, l_pad), dtype=torch.int8, device=line_gid.device)
     li = line_gid[valid].long()
     ci = cap_id[valid].long()
     if li.numel() and (int(li.max()) >= l_pad or int(ci.max()) >= c_pad
                        or int(li.min()) < 0 or int(ci.min()) < 0):
         raise ValueError("membership row out of the planned shape")
-    m.view(-1)[li * c_pad + ci] = 1
-    return m
+    m_t.view(-1)[ci * l_pad + li] = 1
+    return m_t
 
 
 def pack_bool(x):
@@ -194,12 +198,12 @@ def cooc_dot(a, b):
     return (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.int32)
 
 
-def stage_block_counts(m, *, kl: int, tile: int):
+def stage_block_counts(m_t, *, kl: int, tile: int):
     """(l_pad//kl, c_pad//tile) int32 membership popcounts per (line block x dep
-    tile): the record the block-skip schedule is built from."""
-    l_pad, c_pad = m.shape
-    blocks = m.reshape(l_pad // kl, kl, c_pad // tile, tile)
-    return blocks.sum(dim=(1, 3), dtype=torch.int32)
+    tile) of Mᵀ: the record the block-skip schedule is built from."""
+    c_pad, l_pad = m_t.shape
+    blocks = m_t.reshape(c_pad // tile, tile, l_pad // kl, kl)
+    return blocks.sum(dim=(1, 3), dtype=torch.int32).T.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,26 +271,23 @@ def packed_nonzero(packed, rows: int, cols: int):
     return idx[:, 0], idx[:, 1]
 
 
-def fused_cind_tile(m, lo: int, width: int, cols: dict, rows: dict,
-                    block_ids: np.ndarray):
-    """One launch of K1 over dep columns [lo, lo + width) and every ref column.
+def fused_cind_tile(m_t, lo: int, width: int, cols: dict, rows: dict,
+                    block_ids, n_real):
+    """One launch of K1 over dep rows [lo, lo + width) of Mᵀ and every ref.
 
     `cols` holds the per-capture int32 columns over the whole capture axis
-    (sup, ok, gid, code, v1, v2) and `rows` the per-ref rows (ridx, code, v1).
-    Returns (packed (width, c_pad // 32) int32, popc (width,) int32).
+    (sup, ok, gid, code, v1, v2) and `rows` the per-ref rows (ridx, code, v1);
+    the schedule is as ``kernels.fused_cind_blocks`` takes it.  Returns (packed
+    (width, c_pad // 32) int32, popc (width,) int32).
     """
     from . import kernels
 
-    dev = m.device
-    c_pad = m.shape[1]
     sl = slice(lo, lo + width)
-    bids = torch.as_tensor(block_ids, dtype=torch.int32).to(dev)
-    n_real = torch.tensor([block_ids.size], dtype=torch.int32).to(dev)
     return kernels.fused_cind_blocks(
-        m[:, sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
+        m_t[sl], m_t, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
         cols["code"][sl], cols["v1"][sl], cols["v2"][sl],
-        rows["ridx"], rows["code"], rows["v1"], bids, n_real,
-        ref_lo=0, ref_chunk=c_pad)
+        rows["ridx"], rows["code"], rows["v1"], block_ids, n_real,
+        ref_lo=0, ref_chunk=m_t.shape[0])
 
 
 def sweep_operands(dep_count, cap_code, cap_v1, cap_v2, min_support: int):
@@ -303,20 +304,24 @@ def sweep_operands(dep_count, cap_code, cap_v1, cap_v2, min_support: int):
     return cols, rows
 
 
-def discover_pairs_dense(m, dep_count, cap_code, cap_v1, cap_v2,
+def discover_pairs_dense(m_t, dep_count, cap_code, cap_v1, cap_v2,
                          min_support: int, plan: DensePlan, stats=None):
     """Run the tiled CIND sweep; return host (dep_id, ref_id, support) int64 arrays.
 
-    m: (l_pad, c_pad) int8 membership; dep_count/cap_*: (c_pad,) per-capture
-    support and identity columns on M's device.  The block popcounts prune the
-    schedule first (dep tiles whose captures occur in no line are dropped, and
-    each launch visits only its non-empty line blocks); then every launch is
-    issued, one host pull brings all launches' set-bit counts, and only launches
+    m_t: (c_pad, l_pad) int8 membership Mᵀ; dep_count/cap_*: (c_pad,)
+    per-capture support and identity columns on its device.  The block
+    popcounts prune the schedule first (dep tiles whose captures occur in no
+    line are dropped, and each launch visits only its non-empty line blocks);
+    all launches' schedules are checked on the host and reach the device in one
+    copy, then every launch is queued back to back with no host sync between
+    them, one host pull brings all launches' set-bit counts, and only launches
     with set bits are decoded.
     """
+    from . import kernels
+
     kl, tile, num_caps = plan.line_block, plan.tile, plan.num_caps
     los = plan.dep_tile_starts
-    block_counts = stage_block_counts(m, kl=kl, tile=tile).cpu().numpy()
+    block_counts = stage_block_counts(m_t, kl=kl, tile=tile).cpu().numpy()
     launches = sweep_launches(block_counts, los, tile)
     empty = block_counts[:, [lo // tile for lo in los]] == 0
     n_blocks_skipped = int(empty.sum())
@@ -329,8 +334,11 @@ def discover_pairs_dense(m, dep_count, cap_code, cap_v1, cap_v2,
 
     cols, rows = sweep_operands(dep_count, cap_code, cap_v1, cap_v2,
                                 min_support)
-    outs = [fused_cind_tile(m, ln.lo, ln.width, cols, rows, ln.block_ids)
-            for ln in launches]
+    schedules = kernels.upload_schedules(
+        [(ln.block_ids, ln.block_ids.size) for ln in launches],
+        plan.n_line_blocks, m_t.device)
+    outs = [fused_cind_tile(m_t, ln.lo, ln.width, cols, rows, *sched)
+            for ln, sched in zip(launches, schedules)]
     counts = (torch.stack([popc.sum() for _, popc in outs]).cpu().numpy()
               if outs else np.zeros(0, np.int64))
     deps, refs = [], []

@@ -7,9 +7,10 @@ counts the kernel launches per wrapper, so a run can show that its main path wen
 through the kernels.
 
 K1 ``fused_cind_blocks`` replaces ``rdfind_tpu/ops/pallas_kernels.py:
-fused_cind_blocks``: one (tile x ref_chunk) block of the dense CIND sweep, with the
-co-occurrence counts summed over the scheduled line blocks only and the CIND
-verdict packed to 32-bit words (``cooc.pack_bool``'s layout).
+fused_cind_blocks``: one (tile x ref_chunk) block of the dense CIND sweep on the
+K-major membership Mᵀ, with the co-occurrence counts summed over the scheduled
+line blocks only and the CIND verdict packed to 32-bit words
+(``cooc.pack_bool``'s layout).
 
 K2 ``packed_contains_matrix`` replaces ``pallas_kernels.packed_contains_matrix``:
 the Bloom containment test of the approximate strategies on packed words.  P1
@@ -20,6 +21,7 @@ library and ``check_contains_library`` runs both before a candidate pass.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import conditions as cc
@@ -27,6 +29,7 @@ from . import build, cooc
 
 CIND_BLOCK_D = 128
 CIND_BLOCK_R = 128
+CIND_KC = 128  # lines per pipeline stage of K1: a line block is a multiple
 CONTAINS_BLOCK_D = 64
 CONTAINS_BLOCK_R = 64
 
@@ -44,20 +47,50 @@ def _fused_kl(l_pad: int) -> int:
     return cooc.line_block_for(l_pad)
 
 
+def check_schedule(block_ids: np.ndarray, n_real: int, n_blocks: int) -> None:
+    """Raise unless the first `n_real` entries of the host array `block_ids` are
+    line-block ids in [0, n_blocks).  Host numpy only: no device sync."""
+    block_ids = np.asarray(block_ids)
+    if block_ids.ndim != 1 or not 0 <= n_real <= block_ids.size or (
+            n_real and (block_ids[:n_real].min() < 0
+                        or block_ids[:n_real].max() >= n_blocks)):
+        raise ValueError(f"block schedule out of range: n_real={n_real}, "
+                         f"{block_ids.size} entries, {n_blocks} line blocks")
+
+
+def upload_schedules(schedules, n_blocks: int, device) -> list:
+    """Each (block_ids host array, n_real) pair as K1's device operands, checked
+    on the host and moved in one copy: [(block_ids (nk,) int32, n_real (1,)
+    int32), ...], views of one buffer on `device`."""
+    parts, spans, at = [], [], 0
+    for block_ids, n_real in schedules:
+        check_schedule(block_ids, n_real, n_blocks)
+        parts += [np.array([n_real], np.int32),
+                  np.asarray(block_ids, np.int32).reshape(-1)]
+        spans.append((at, at + 1, at + 1 + parts[-1].size))
+        at = spans[-1][2]
+    if not spans:
+        return []
+    buf = torch.as_tensor(np.concatenate(parts)).to(device)
+    return [(buf[b:e], buf[a:b]) for a, b, e in spans]
+
+
 def _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
                         ref_chunk):
     if m_dep.dtype != torch.int8 or m.dtype != torch.int8:
         raise TypeError("membership operands must be int8")
-    if m_dep.dim() != 2 or m.dim() != 2 or m_dep.shape[0] != m.shape[0]:
+    if m_dep.dim() != 2 or m.dim() != 2 or m_dep.shape[1] != m.shape[1]:
         raise ValueError(f"bad membership shapes {tuple(m_dep.shape)} and "
                          f"{tuple(m.shape)}")
-    l_pad, tile = m_dep.shape
-    c_pad = m.shape[1]
+    tile, l_pad = m_dep.shape
+    c_pad = m.shape[0]
+    kl = _fused_kl(l_pad)
     if m_dep.stride(1) != 1 or m.stride(1) != 1:
-        raise ValueError("membership operands must have unit column stride")
+        raise ValueError("membership operands must be contiguous along the "
+                         "lines")
     if (tile % CIND_BLOCK_D or ref_chunk <= 0 or ref_chunk % CIND_BLOCK_R
             or ref_lo % CIND_BLOCK_R or ref_lo < 0
-            or ref_lo + ref_chunk > c_pad or l_pad % _fused_kl(l_pad)):
+            or ref_lo + ref_chunk > c_pad or l_pad % kl or kl % CIND_KC):
         raise ValueError(f"fused tile not block-aligned: tile={tile} "
                          f"ref_lo={ref_lo} ref_chunk={ref_chunk} c_pad={c_pad} "
                          f"l_pad={l_pad}")
@@ -75,12 +108,9 @@ def _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
         raise ValueError("block_ids must be a contiguous 1-D int32 tensor")
     if n_real.dtype != torch.int32 or n_real.numel() != 1:
         raise ValueError("n_real must be a one-element int32 tensor")
-    n = int(n_real.reshape(-1)[0])
-    n_blocks = l_pad // _fused_kl(l_pad)
-    if not 0 <= n <= block_ids.numel() or not bool(
-            ((block_ids[:n] >= 0) & (block_ids[:n] < n_blocks)).all()):
-        raise ValueError(f"block schedule out of range: n_real={n}, "
-                         f"{block_ids.numel()} entries, {n_blocks} line blocks")
+    if dev.type == "cpu":  # reading CPU values needs no device sync
+        check_schedule(block_ids.numpy(), int(n_real.reshape(-1)[0]),
+                       l_pad // kl)
 
 
 def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
@@ -88,13 +118,16 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
                       *, ref_lo: int, ref_chunk: int):
     """(tile x ref_chunk) fused CIND verdict, packed, plus the per-dep popcount.
 
-    m_dep: (l_pad, tile) int8 dep slice of the membership matrix (a column slice of
-    ``m`` is fine: only its column stride must be 1); m: (l_pad, c_pad) int8.  The
-    ``*_col`` operands are per-dep int32 columns of ``tile`` values (support,
-    support >= min_support, global capture id, code, v1, v2), the ``*_row``
-    operands per-ref int32 rows of ``c_pad`` values (global id, code, v1);
-    ``block_ids`` (nk,) int32 line-block ids of which the first ``n_real`` (a
-    one-element int32 tensor) are visited.
+    m: (c_pad, l_pad) int8 K-major membership Mᵀ (captures x lines); m_dep:
+    (tile, l_pad) int8 dep rows (a row slice ``m[lo:lo + tile]`` is fine: only
+    its line stride must be 1).  The ``*_col`` operands are per-dep int32 columns
+    of ``tile`` values (support, support >= min_support, global capture id,
+    code, v1, v2), the ``*_row`` operands per-ref int32 rows of ``c_pad`` values
+    (global id, code, v1).  The schedule is ``block_ids`` (nk,) int32 line-block
+    ids of which the first ``n_real`` (a one-element int32 tensor) are visited,
+    both on m's device, as ``upload_schedules`` makes them after checking them
+    on the host.  A CUDA schedule is not read back here (that would sync the
+    host): the kernel checks it itself and traps on a bad one.
 
     Returns (packed, popc): (tile, ref_chunk // 32) int32 words where bit r of word
     w in row d is the verdict for ref column ref_lo + 32 w + r, and (tile,) int32
@@ -115,18 +148,19 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
     for t in (m_dep, m):
         if t.data_ptr() % 16 or t.stride(0) % 16:
             raise ValueError("membership operands need 16-byte aligned rows")
-    l_pad, tile = m_dep.shape
+    tile, l_pad = m_dep.shape
     packed = torch.empty((tile, ref_chunk // 32), dtype=torch.int32,
                          device=m.device)
     popc = torch.zeros(tile, dtype=torch.int32, device=m.device)
     lib = build.load("fused_cind")
     stream = torch.cuda.current_stream(m.device).cuda_stream
     err = lib.fused_cind_launch(
-        m_dep.data_ptr(), m_dep.stride(0), m.data_ptr(), m.stride(0),
+        m_dep.data_ptr(), m_dep.stride(0), m.data_ptr(), m.stride(0), l_pad,
         *(t.data_ptr() for t in cols.values()),
         *(t.data_ptr() for t in rows.values()),
         block_ids.data_ptr(), n_real.data_ptr(), tile, ref_chunk,
-        _fused_kl(l_pad), ref_lo, packed.data_ptr(), popc.data_ptr(), stream)
+        _fused_kl(l_pad), ref_lo, block_ids.numel(), packed.data_ptr(),
+        popc.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("fused_cind launch failed: "
                            + lib.fused_cind_error_string(err).decode())
@@ -137,21 +171,22 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
 def fused_cind_blocks_plain(m_dep, m, sup_col, ok_col, gid_col, dcode_col,
                             dv1_col, dv2_col, ridx_row, rcode_row, rv1_row,
                             block_ids, n_real, *, ref_lo: int, ref_chunk: int):
-    """Plain PyTorch version of fused_cind_blocks (same inputs and outputs).
+    """Plain PyTorch version of fused_cind_blocks (same inputs and outputs, the
+    schedule as tensors).
 
-    The membership rows of the scheduled line blocks are widened to float64 for the
-    product, which is exact: every count is a sum of at most l_pad < 2^53 unit
-    terms.
+    The membership lines of the scheduled line blocks are widened to float64 for
+    the product, which is exact: every count is a sum of at most l_pad < 2^53
+    unit terms.
     """
-    l_pad, tile = m_dep.shape
+    tile, l_pad = m_dep.shape
     kl = _fused_kl(l_pad)
     n = int(n_real.reshape(-1)[0])
     blocks = block_ids[:n].long()
     lines = (blocks[:, None] * kl
              + torch.arange(kl, device=m.device)[None, :]).reshape(-1)
-    a = m_dep[lines].to(torch.float64)
-    b = m[lines, ref_lo:ref_lo + ref_chunk].to(torch.float64)
-    counts = (a.T @ b).to(torch.int32)
+    a = m_dep[:, lines].to(torch.float64)
+    b = m[ref_lo:ref_lo + ref_chunk, lines].to(torch.float64)
+    counts = (a @ b.T).to(torch.int32)
 
     def col(x):
         return x.reshape(tile, 1)
@@ -215,6 +250,9 @@ def packed_contains_matrix(sketch_packed, ref_packed, ref_popc):
     if not (sketch_packed.is_contiguous() and ref_packed.is_contiguous()
             and ref_popc.is_contiguous()):
         raise ValueError("packed_contains_matrix needs contiguous operands")
+    align = min(16, 4 * w)  # the kernel stages rows with 16-byte copies
+    if sketch_packed.data_ptr() % align or ref_packed.data_ptr() % align:
+        raise ValueError(f"packed operands need {align}-byte aligned rows")
     if dev.type == "cpu":
         return packed_contains_matrix_plain(sketch_packed, ref_packed, ref_popc)
     out = torch.empty((d, r), dtype=torch.uint8, device=dev)

@@ -1,7 +1,9 @@
 """Parity of the port's dense sweep (ops/cooc.py) with the JAX package's, on the
 CPU: shape plans, the membership matrix, block popcounts, the packed decode, and
 the whole sweep run on the same membership state handed over from the JAX side.
-All quantities are integers or bits: exact.
+The JAX package holds M (lines x captures), the port Mᵀ (captures x lines): the
+port is given ``M.T`` of the same array.  All quantities are integers or bits:
+exact.
 """
 
 import jax
@@ -14,7 +16,9 @@ from rdfind_tpu.models import allatonce as jallatonce
 from rdfind_tpu.ops import cooc as jcooc
 from rdfind_tpu.ops import segments as jseg
 from rdfind_tpu_torch import state
+from rdfind_tpu_torch.models import allatonce as tallatonce
 from rdfind_tpu_torch.ops import cooc as tcooc
+from rdfind_tpu_torch.ops import kernels
 from rdfind_tpu_torch.utils import synth
 
 
@@ -57,27 +61,52 @@ def _stage_state(seed=2, n=600, min_support=2):
         jallatonce._stage_prepare(padded, jnp.int32(n), jnp.int32(min_support),
                                   projections="spo", use_fc_filter=True)
     plan = jcooc.dense_plan(int(n_lines), int(num_caps))
-    m, dep_count, _ = jallatonce._stage_membership(
+    m, dep_count, lens = jallatonce._stage_membership(
         gid, cap_id, valid, jnp.int32(min_support), l_pad=plan.l_pad,
         c_pad=plan.c_pad, membership_dtype=plan.dtype)
     fit = lambda a: np.asarray(jallatonce._fit_device(a, plan.c_pad))
     return plan, dict(line_gid=np.asarray(gid), cap_id=np.asarray(cap_id),
                       valid=np.asarray(valid), m=np.asarray(m, np.float32),
                       dep_count=np.asarray(dep_count), cap_code=fit(code),
-                      cap_v1=fit(v1), cap_v2=fit(v2))
+                      cap_v1=fit(v1), cap_v2=fit(v2),
+                      lens=np.asarray(lens, np.float64))
 
 
 def test_build_membership_and_block_counts_match():
     plan, st = _stage_state()
-    t = state.stage_state_to_device(st, "cpu")
-    m = tcooc.build_membership(t["line_gid"], t["cap_id"], t["valid"],
-                               l_pad=plan.l_pad, c_pad=plan.c_pad)
-    np.testing.assert_array_equal(m.numpy(), st["m"].astype(np.int8))
+    t = state.stage_state_to_device(
+        {k: v for k, v in st.items() if k != "lens"}, "cpu")
+    m_t = tcooc.build_membership(t["line_gid"], t["cap_id"], t["valid"],
+                                 l_pad=plan.l_pad, c_pad=plan.c_pad)
+    assert m_t.shape == (plan.c_pad, plan.l_pad)
+    np.testing.assert_array_equal(m_t.numpy(), st["m"].astype(np.int8).T)
     kl = tcooc.line_block_for(plan.l_pad)
     want = np.asarray(jcooc._stage_block_counts(jnp.asarray(st["m"]), kl=kl,
                                                 tile=plan.tile))
-    got = tcooc.stage_block_counts(m, kl=kl, tile=plan.tile).numpy()
+    got = tcooc.stage_block_counts(m_t, kl=kl, tile=plan.tile).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("min_support", [2, 3])
+def test_stage_membership_on_mt_matches_jax(min_support):
+    """The Mᵀ-built aggregates: dep_count (row sums of Mᵀ), lens (column sums
+    over the frequent rows) and the block popcounts equal the JAX package's
+    _stage_membership / _stage_block_counts on M."""
+    plan, st = _stage_state(seed=5, n=800, min_support=min_support)
+    t = state.stage_state_to_device(
+        {k: st[k] for k in ("line_gid", "cap_id", "valid")}, "cpu")
+    m_t, dep_count, lens = tallatonce._stage_membership(
+        t["line_gid"], t["cap_id"], t["valid"], min_support, l_pad=plan.l_pad,
+        c_pad=plan.c_pad)
+    np.testing.assert_array_equal(m_t.numpy(), st["m"].astype(np.int8).T)
+    np.testing.assert_array_equal(dep_count.numpy(), st["dep_count"])
+    np.testing.assert_array_equal(lens.numpy(), st["lens"])
+    assert lens.sum() > 0 and (dep_count.numpy() < min_support).any()
+    kl = tcooc.line_block_for(plan.l_pad)
+    np.testing.assert_array_equal(
+        tcooc.stage_block_counts(m_t, kl=kl, tile=plan.tile).numpy(),
+        np.asarray(jcooc._stage_block_counts(jnp.asarray(st["m"]), kl=kl,
+                                             tile=plan.tile)))
 
 
 @pytest.mark.parametrize("min_support", [2, 4])
@@ -95,7 +124,8 @@ def test_discover_pairs_dense_matches_on_handed_over_state(min_support):
     tplan = tcooc.dense_plan(jplan.n_lines, jplan.num_caps, "cpu")
     stats = {}
     d_t, r_t, s_t = tcooc.discover_pairs_dense(
-        t["m"], t["dep_count"], t["cap_code"], t["cap_v1"], t["cap_v2"],
+        t["m"].T.contiguous(), t["dep_count"], t["cap_code"], t["cap_v1"],
+        t["cap_v2"],
         min_support, tplan, stats=stats)
     want = set(zip(d_j.tolist(), r_j.tolist(), s_j.tolist()))
     assert want, "the workload must produce CINDs"
@@ -114,21 +144,24 @@ def test_launch_union_schedule_equals_per_tile_schedules():
         rows = (j // tile) * 256 + rng.choice(512, 6, replace=False)
         m[rows % l_pad, j] = 1
     m[:, 384:448] |= m[:, 0:64]
-    mt = torch.as_tensor(m)
+    mt = torch.as_tensor(m.T.copy())
     cols, rows = tcooc.sweep_operands(
-        mt.sum(dim=0, dtype=torch.int32),
+        mt.sum(dim=1, dtype=torch.int32),
         torch.full((c_pad,), 12, dtype=torch.int32),
         torch.arange(c_pad, dtype=torch.int32),
         torch.full((c_pad,), -1, dtype=torch.int32), 2)
     counts = tcooc.stage_block_counts(mt, kl=256, tile=tile).numpy()
     launches = tcooc.sweep_launches(counts, range(0, c_pad, tile), tile)
     assert len(launches) == 1 and launches[0].width == c_pad
-    joint, popc = tcooc.fused_cind_tile(mt, 0, c_pad, cols, rows,
-                                        launches[0].block_ids)
+    n_blocks = l_pad // 256
+    (joint_sched,) = kernels.upload_schedules(
+        [(launches[0].block_ids, launches[0].block_ids.size)], n_blocks, "cpu")
+    joint, popc = tcooc.fused_cind_tile(mt, 0, c_pad, cols, rows, *joint_sched)
     for lo in range(0, c_pad, tile):
         own = np.flatnonzero(counts[:, lo // tile]).astype(np.int32)
         assert own.size < launches[0].block_ids.size
-        p, c = tcooc.fused_cind_tile(mt, lo, tile, cols, rows, own)
+        (sched,) = kernels.upload_schedules([(own, own.size)], n_blocks, "cpu")
+        p, c = tcooc.fused_cind_tile(mt, lo, tile, cols, rows, *sched)
         np.testing.assert_array_equal(p.numpy(), joint[lo:lo + tile].numpy())
         np.testing.assert_array_equal(c.numpy(), popc[lo:lo + tile].numpy())
     assert int(popc.sum()) >= 64

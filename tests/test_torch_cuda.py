@@ -25,32 +25,34 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _block(seed, l_pad, c_pad, device):
+def _block(seed, l_pad, c_pad, device, planted=96, lines=None,
+           min_support=2):
+    """Mᵀ (c_pad x l_pad) with members in every line block, captures
+    [0, planted) planted in captures c_pad / 2 + [0, planted), and its sweep
+    operands.  A dep's support is counted over all lines, or over `lines` only
+    (a schedule's lines): then the planted pairs pass the support test under
+    that schedule, and any count taken from another line block fails it."""
     rng = np.random.default_rng(seed)
     m = (rng.random((l_pad, c_pad)) < 0.03).astype(np.int8)
-    m[:, c_pad // 2:c_pad // 2 + 96] |= m[:, :96]
-    mt = torch.as_tensor(m).to(device)
+    m[:, c_pad // 2:c_pad // 2 + planted] |= m[:, :planted]
+    mt = torch.as_tensor(m.T.copy()).to(device)
+    sup = mt if lines is None else mt[:, torch.as_tensor(lines).to(device)]
     cols, rows = cooc.sweep_operands(
-        mt.sum(dim=0, dtype=torch.int32),
+        sup.sum(dim=1, dtype=torch.int32),
         torch.as_tensor(rng.choice([12, 17, 20, 35], c_pad).astype(np.int32))
         .to(device),
         torch.as_tensor(rng.integers(0, 3, c_pad).astype(np.int32)).to(device),
         torch.as_tensor(rng.integers(-1, 3, c_pad).astype(np.int32))
-        .to(device), 2)
+        .to(device), min_support)
     return mt, cols, rows
 
 
-@pytest.mark.parametrize("lo,width,blocks,n_real,ref_lo,ref_chunk", [
-    (0, 256, [0, 1, 2, 3, 4], 5, 0, 512),  # full schedule, full ref axis
-    (128, 128, [3, 1, 0, 0], 2, 0, 512),   # padded schedule entries
-    (0, 128, [0, 0], 0, 0, 512),           # empty schedule
-    (256, 128, [0, 2], 2, 256, 128),       # diagonal block
-])
-def test_k1_kernel_matches_plain(cuda, lo, width, blocks, n_real, ref_lo,
-                                 ref_chunk):
-    m, cols, rows = _block(0, 1280, 512, cuda)  # five 256-line blocks
+def _k1_case(cuda, m, cols, rows, lo, width, blocks, n_real, ref_lo,
+             ref_chunk):
+    """One launch on Mᵀ against the plain version; returns the verdict bits
+    set."""
     sl = slice(lo, lo + width)
-    args = (m[:, sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
+    args = (m[sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
             cols["code"][sl], cols["v1"][sl], cols["v2"][sl], rows["ridx"],
             rows["code"], rows["v1"],
             torch.tensor(blocks, dtype=torch.int32, device=cuda),
@@ -62,6 +64,126 @@ def test_k1_kernel_matches_plain(cuda, lo, width, blocks, n_real, ref_lo,
     want = kernels.fused_cind_blocks_plain(*args, ref_lo=ref_lo,
                                            ref_chunk=ref_chunk)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return int(want[1].sum())
+
+
+@pytest.mark.parametrize("lo,width,blocks,n_real,ref_lo,ref_chunk", [
+    (0, 256, [0, 1, 2, 3, 4], 5, 0, 512),  # full schedule, full ref axis
+    (128, 128, [3, 1, 0, 0], 2, 0, 512),   # padded schedule entries
+    (0, 128, [0, 0], 0, 0, 512),           # empty schedule
+    (256, 128, [0, 2], 2, 256, 128),       # diagonal block
+])
+def test_k1_kernel_matches_plain(cuda, lo, width, blocks, n_real, ref_lo,
+                                 ref_chunk):
+    m, cols, rows = _block(0, 1280, 512, cuda)  # five 256-line blocks
+    _k1_case(cuda, m, cols, rows, lo, width, blocks, n_real, ref_lo,
+             ref_chunk)
+
+
+@pytest.mark.parametrize("l_pad,c_pad,lo,width,blocks,n_real,ref_lo,ref_chunk", [
+    # ref axis a multiple of 128 but not of 256: a ragged last ref block
+    (1280, 384, 0, 256, [0, 1, 2, 3, 4], 5, 0, 384),
+    (1280, 640, 128, 128, [4, 2, 0, 3, 1], 5, 128, 384),
+    # n_real < nk with padded entries, and n_real = 0, on the ragged axis
+    (1280, 384, 128, 128, [3, 1, 0, 0, 0, 0, 0, 0], 2, 0, 384),
+    (1280, 384, 0, 384, [2, 2, 2], 0, 0, 384),
+    # several line blocks per wrap of the stage ring (256-line blocks), and
+    # several ring wraps per line block (1,024-line blocks)
+    (2304, 512, 0, 384, [8, 4, 7, 0, 1, 2, 3, 5, 6], 9, 0, 512),
+    (4096, 768, 256, 512, [3, 0, 2, 1], 3, 0, 768),
+])
+def test_k1_kernel_edge_cases_match_plain(cuda, l_pad, c_pad, lo, width,
+                                          blocks, n_real, ref_lo, ref_chunk):
+    """Support is counted over the scheduled lines and every support passes,
+    so the verdict bits are set exactly where a pair's counts are those of the
+    schedule: a kernel that visits a padded entry, ignores n_real or drops a
+    scheduled block clears bits the plain version sets."""
+    kl = cooc.line_block_for(l_pad)
+    lines = np.concatenate([np.arange(b * kl, (b + 1) * kl)
+                            for b in blocks[:n_real]] or [np.zeros(0, int)])
+    m, cols, rows = _block(l_pad + c_pad, l_pad, c_pad, cuda,
+                           planted=c_pad // 2, lines=lines, min_support=0)
+    n_set = _k1_case(cuda, m, cols, rows, lo, width, blocks, n_real, ref_lo,
+                     ref_chunk)
+    assert n_set > 0
+
+
+_BAD_SCHEDULE = """
+import sys, torch
+from rdfind_tpu_torch.ops import cooc, kernels
+blocks, n_real = eval(sys.argv[1])
+cuda = torch.device("cuda", 0)
+m = torch.zeros((512, 1280), dtype=torch.int8, device=cuda)
+z = torch.zeros(512, dtype=torch.int32, device=cuda)
+cols, rows = cooc.sweep_operands(z, z, z, z, 0)
+try:
+    cooc.fused_cind_tile(
+        m, 0, 128, cols, rows,
+        torch.tensor(blocks, dtype=torch.int32, device=cuda),
+        torch.tensor([n_real], dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("refused:", e)
+else:
+    print("ran")
+print("launches", kernels.LAUNCHES["fused_cind_blocks"])
+"""
+
+
+@pytest.mark.parametrize("schedule", [
+    "([0, 1], 3)",   # n_real past the schedule's entries
+    "([0, 5], 2)",   # a block id past the five line blocks
+    "([1, -1], 2)",  # a negative block id
+])
+def test_k1_kernel_traps_on_a_bad_device_schedule(cuda, schedule):
+    """The wrapper does not read a device schedule back; the kernel checks it
+    and traps, so the launch fails rather than counting zero-filled lines.  A
+    trap ends the process's CUDA context, hence the subprocess."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(rdfind_tpu_torch.__file__).resolve().parents[1]
+    res = subprocess.run([sys.executable, "-c", _BAD_SCHEDULE, schedule],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    assert "launches 1" in res.stdout, res.stdout + res.stderr
+    assert "refused:" in res.stdout, res.stdout + res.stderr
+
+
+def test_k1_bad_host_schedule_raises_before_any_launch(cuda):
+    with pytest.raises(ValueError, match="schedule"):
+        kernels.upload_schedules([(np.array([0, 5], np.int32), 2)], 5, cuda)
+    with pytest.raises(ValueError, match="schedule"):
+        kernels.upload_schedules([(np.array([0], np.int32), 2)], 5, cuda)
+
+
+def test_k1_sweep_launches_queue_without_host_sync(cuda, monkeypatch):
+    """The sweep checks and uploads its schedules first; its launches then run
+    with PyTorch's sync debug mode raising on any host sync."""
+    monkeypatch.setattr(cooc, "LAUNCH_COLS", 128)  # one launch per dep tile
+    m, cols, rows = _block(9, 1280, 512, cuda)
+    counts = cooc.stage_block_counts(m, kl=256, tile=128).cpu().numpy()
+    launches = cooc.sweep_launches(counts, range(0, 512, 128), 128)
+    scheds = kernels.upload_schedules(
+        [(ln.block_ids, ln.block_ids.size) for ln in launches], 5, cuda)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [cooc.fused_cind_tile(m, ln.lo, ln.width, cols, rows, *sched)
+                for ln, sched in zip(launches, scheds)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(launches) == 4
+    assert kernels.LAUNCHES["fused_cind_blocks"] == 4
+    for ln, (packed, popc), sched in zip(launches, outs, scheds):
+        want = kernels.fused_cind_blocks_plain(
+            m[ln.lo:ln.lo + ln.width], m, *(cols[k][ln.lo:ln.lo + ln.width]
+                                           for k in ("sup", "ok", "gid", "code",
+                                                     "v1", "v2")),
+            rows["ridx"], rows["code"], rows["v1"],
+            *sched, ref_lo=0, ref_chunk=512)
+        assert torch.equal(packed, want[0]) and torch.equal(popc, want[1])
 
 
 def test_discover_on_cuda_equals_cpu(cuda):
@@ -100,6 +222,11 @@ def _contains_inputs(seed, d, r, bits, n_pad, device):
     (128, 320, 2048, 64),   # W = 64, padded refs
     (256, 128, 16384, 0),   # W = 512: several word chunks
     (192, 4096, 2048, 0),   # many CTAs
+    (128, 192, 32, 64),     # W = 1, padded refs
+    (64, 128, 64, 0),       # W = 2 and W = 4: fewer words than one staged
+    (64, 128, 128, 32),     # 16-byte copy, padded refs
+    (256, 256, 16384, 64),  # W = 512, padded refs
+    (64, 128, 65536, 64),   # W = 2,048, the widest sketch, padded refs
 ])
 def test_k2_kernel_matches_plain(cuda, d, r, bits, n_pad):
     sk, words, popc = _contains_inputs(d + r, d, r, bits, n_pad, cuda)

@@ -1,9 +1,11 @@
 """K1 (fused_cind_blocks): the port's plain version against the Pallas kernel.
 
 The Pallas kernel runs in interpret mode on the CPU, as the JAX package's own tests
-run it, and its uint8 verdict is packed with ``cooc.pack_bool``.  The port's
-wrapper, given CPU tensors, runs its plain PyTorch version, which is what the CUDA
-kernel is held against on the card.  Every output is a bit or a count: exact.
+run it, and its uint8 verdict is packed with ``cooc.pack_bool``.  It takes the
+membership M (lines x captures); the port takes the K-major Mᵀ, here
+``M.T.copy()`` of the same numpy array.  The port's wrapper, given CPU tensors,
+runs its plain PyTorch version, which is what the CUDA kernel is held against on
+the card.  Every output is a bit or a count: exact.
 """
 
 import jax
@@ -68,15 +70,26 @@ def _jax_block(x, lo, tile, block_ids, n_real, ref_lo, ref_chunk):
     return packed, np.asarray(popc).reshape(-1)
 
 
-def _torch_block(x, lo, tile, block_ids, n_real, ref_lo, ref_chunk):
-    t = {k: torch.as_tensor(v) for k, v in x.items()}
+def _torch_operands(x):
+    """The port's operands: Mᵀ as ``M.T.copy()``, the columns as tensors."""
+    t = {k: torch.as_tensor(v) for k, v in x.items() if k != "m"}
+    t["m_t"] = torch.as_tensor(x["m"].T.copy())
+    return t
+
+
+def _torch_block(x, lo, tile, block_ids, n_real, ref_lo, ref_chunk,
+                 host_schedule=False):
+    t = _torch_operands(x)
     sl = slice(lo, lo + tile)
+    bids = np.asarray(block_ids, np.int32)
+    n_blocks = x["m"].shape[0] // tcooc.line_block_for(x["m"].shape[0])
+    schedule = kernels.upload_schedules([(bids, n_real)], n_blocks, "cpu")[0] \
+        if host_schedule else (torch.as_tensor(bids),
+                               torch.tensor([n_real], dtype=torch.int32))
     packed, popc = kernels.fused_cind_blocks(
-        t["m"][:, sl], t["m"], t["sup"][sl], t["ok"][sl], t["gid"][sl],
+        t["m_t"][sl], t["m_t"], t["sup"][sl], t["ok"][sl], t["gid"][sl],
         t["code"][sl], t["v1"][sl], t["v2"][sl], t["gid"], t["code"],
-        t["v1"], torch.as_tensor(np.asarray(block_ids, np.int32)),
-        torch.tensor([n_real], dtype=torch.int32), ref_lo=ref_lo,
-        ref_chunk=ref_chunk)
+        t["v1"], *schedule, ref_lo=ref_lo, ref_chunk=ref_chunk)
     return packed.numpy(), popc.numpy()
 
 
@@ -143,13 +156,42 @@ def test_wrapper_runs_plain_on_cpu_without_counting_launches():
     assert kernels.LAUNCHES["fused_cind_blocks"] == 0
 
 
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_host_schedule_equals_tensor_schedule(case):
+    """A schedule handed over as a host array (checked on the host and moved
+    to the operands' device by ``upload_schedules``) gives the tensor
+    schedule's bits."""
+    _, seed, l_pad, c_pad, lo, tile, bids, n_real, ref_lo, ref_chunk = case
+    x = _block_inputs(seed, l_pad, c_pad, lo, tile, bids[:n_real])
+    want = _torch_block(x, lo, tile, bids, n_real, ref_lo, ref_chunk)
+    got = _torch_block(x, lo, tile, bids, n_real, ref_lo, ref_chunk,
+                       host_schedule=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_upload_schedules_checks_on_the_host_and_shares_one_buffer():
+    scheds = kernels.upload_schedules(
+        [(np.array([2, 0, 1], np.int32), 3), (np.array([1, 0], np.int32), 1),
+         (np.zeros(4, np.int32), 0)], 3, "cpu")
+    assert [(b.tolist(), n.tolist()) for b, n in scheds] == [
+        ([2, 0, 1], [3]), ([1, 0], [1]), ([0, 0, 0, 0], [0])]
+    assert len({b.untyped_storage().data_ptr() for b, _ in scheds}) == 1
+    assert kernels.upload_schedules([], 3, "cpu") == []
+    for bids, n in (([0, 3], 2), ([0, -1], 2), ([0, 1], 3), ([0, 1], -1)):
+        with pytest.raises(ValueError, match="schedule"):
+            kernels.upload_schedules([(np.array(bids, np.int32), n)], 3, "cpu")
+    # Entries past n_real are padding and are not checked.
+    kernels.check_schedule(np.array([1, 99], np.int32), 1, 3)
+
+
 @pytest.mark.parametrize("bad", ["tile", "ref_lo", "block_id", "n_real",
                                  "dtype", "device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     x = _block_inputs(8, 768, 256)
-    t = {k: torch.as_tensor(v) for k, v in x.items()}
+    t = _torch_operands(x)
     tile, ref_lo, bids, n_real = 128, 0, [0, 1], 2
-    m = t["m"]
+    m = t["m_t"]
     if bad == "tile":
         tile = 64
     elif bad == "ref_lo":
@@ -160,7 +202,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         n_real = 3
     elif bad == "dtype":
         m = m.to(torch.int32)
-    args = (m[:, :tile], m, t["sup"][:tile], t["ok"][:tile], t["gid"][:tile],
+    args = (m[:tile], m, t["sup"][:tile], t["ok"][:tile], t["gid"][:tile],
             t["code"][:tile], t["v1"][:tile], t["v2"][:tile], t["gid"],
             t["code"], t["v1"], torch.as_tensor(np.asarray(bids, np.int32)),
             torch.tensor([n_real], dtype=torch.int32))

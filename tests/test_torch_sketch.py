@@ -228,6 +228,23 @@ def test_contains_wrapper_checks_its_operands():
         kernels.packed_contains_matrix(sk, sk, popc[:10])
 
 
+def test_contains_wrapper_checks_row_alignment():
+    """Rows of four or more words are staged with 16-byte copies: a contiguous
+    view one word into its storage is refused; with one word per row, 4-byte
+    alignment is enough."""
+    popc = torch.full((64,), -1, dtype=torch.int32)
+    buf = torch.zeros(64 * 64 + 1, dtype=torch.int32)
+    odd = buf[1:].reshape(64, 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.packed_contains_matrix(odd, torch.zeros_like(odd), popc)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.packed_contains_matrix(torch.zeros_like(odd), odd, popc)
+    narrow = buf[1:65].reshape(64, 1)
+    out = kernels.packed_contains_matrix(narrow, torch.zeros_like(narrow), popc)
+    assert out.shape == (64, 64) and not out.any()
+
+
 def test_probes_plain_versions_give_the_tpu_probes_answers():
     """P1 and P2 on the CPU: the answers the TPU probes expect."""
     x = torch.arange(2, dtype=torch.int32).reshape(1, 2)
