@@ -19,17 +19,27 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    (strategy 0's fused sweep on the K-major membership Mᵀ), K2 (the Bloom
    containment of strategies 2 and 3, on the sketches the port builds) and the
    probes P1 and P2;
-4. the main paths, ``rdfind_tpu_torch.discover(..., strategy=0|2|3)``, on the
+4. the main paths, ``rdfind_tpu_torch.discover(..., strategy=0|1|2|3)``, on the
    headline workload and on the real-size workload, with the kernel launch
-   counts of each run; the CIND count and output digest of each must equal the
-   JAX package's (and the candidate counts of strategies 2 and 3 too), and every
-   launch of the real-size strategy-0 sweep must also equal the plain version;
+   counts and the peak device memory of each run; the CIND count and output
+   digest of each must equal the JAX package's (and the candidate counts of
+   strategies 2 and 3, and the lattice counts of strategy 1, too).  Strategy 1
+   (small-to-large, on its dense lattice here) launches no hand-written kernel:
+   its product is ``torch._int_mm``.  Every launch of the real-size strategy-0
+   sweep must also equal the plain version;
 5. one more run of each strategy on each workload under torch.profiler:
-   device busy time, idle share, host time per pipeline stage, the operators
-   with the most device time; then the headline without the frequent-condition
-   filter (the CLI's default, ~20x the captures), whose output must still equal
-   the headline golden;
-6. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+   device busy time, idle share, host time per ``rdfind.*`` range (summed over
+   repeats, such as the chunks), the operators with the most device time;
+6. the CLI's default configuration: the headline without the frequent-condition
+   filter (~20x the captures), through strategy 0 and through strategy 1, whose
+   capture axis takes its chunked lattice walk; both must equal the filtered
+   goldens.  Strategy 1 with clean_implied must equal strategy 0 with it.  Then
+   the CLI itself (``programs/rdfind.py`` with only ``--support 10``) on an
+   N-Triples file written from the headline triples: its output file must
+   equal the strategy-1 golden's CINDs, line for line;
+7. the chunked pair backend forced on the headline for strategies 0, 2 and 3:
+   each must equal its golden, candidate counts included, with its chunk count;
+8. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
 
 Any mismatch raises, so the script exits non-zero without the last line.
 """
@@ -50,9 +60,12 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import rdfind_tpu_torch  # noqa: E402
+from rdfind_tpu_torch.data import CindTable  # noqa: E402
+from rdfind_tpu_torch.dictionary import Dictionary  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
 from rdfind_tpu_torch.obs import integrity  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
+from rdfind_tpu_torch.programs import rdfind as cli  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit.
@@ -92,9 +105,43 @@ GOLDEN_APPROX = {
     ("dbpedia2m", 3): dict(n_cinds=1397, digest="0264f31fbfec8876",
                            n_round1_candidates=1405, n_round2_candidates=0),
 }
-# The kernels each main path must launch.
+# Strategy 1 (small-to-large), recorded the same way from the JAX package's
+#   rdfind_tpu.discover(t, s, strategy=1, stats=st)   # dense lattice
+# (~15 s for the headline, ~70 s for dbpedia2m on one core), with the lattice
+# counts from `st`.  The JAX package gives the same CINDs and digest without the
+# frequent-condition filter: at 20,000 triples of the same generator (seed 42,
+# support 10) its filtered run (dense) and unfiltered run (chunked walk) both
+# give 8,396 CINDs, digest 714cca23adf4fe3b.  With clean_implied the headline
+# gives 316,739 CINDs, digest d45fdf70356a9b01.
+GOLDEN_S2L = {
+    "headline": dict(n_cinds=384272, digest="01f997b4baf6fa93",
+                     n_cinds_11=170308, n_proper_overlaps=661660,
+                     n_cinds_12=123378, n_cinds_21=48672,
+                     n_inferred_21=235765, n_cinds_22=41914,
+                     total_pairs=230404144),
+    "dbpedia2m": dict(n_cinds=1397, digest="0264f31fbfec8876",
+                      n_cinds_11=1397, n_proper_overlaps=115799,
+                      n_cinds_12=0, n_cinds_21=0, n_inferred_21=0,
+                      n_cinds_22=0, total_pairs=79284596),
+}
+GOLDEN_S2L_CLEAN = dict(n_cinds=316739, digest="d45fdf70356a9b01")
+# The kernels each main path must launch.  Strategy 1 launches none: its
+# lattice is torch ops and torch._int_mm, and the JAX package has no Pallas
+# kernel on that path either.  Nor does strategy 0's chunked backend
+# (path_kernels); strategies 2 and 3 reach K2 on either backend.
 K2_PATH = ("packed_contains_matrix", "repeat_probe", "pipeline_probe")
-PATH_KERNELS = {0: ("fused_cind_blocks",), 2: K2_PATH, 3: K2_PATH}
+PATH_KERNELS = {0: ("fused_cind_blocks",), 1: (), 2: K2_PATH, 3: K2_PATH}
+
+
+def path_kernels(strategy: int, kw: dict) -> tuple:
+    if strategy == 0 and kw.get("pair_backend") == "chunked":
+        return ()
+    return PATH_KERNELS[strategy]
+
+
+# Where the script writes its files: inside the checkout, ignored by git.
+SCRATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "smoke")
 
 # (name, triples generator, min_support).
 WORKLOADS = [
@@ -492,57 +539,94 @@ def triples_sha1(triples) -> str:
                         .tobytes()).hexdigest()[:12]
 
 
+def golden_of(name, strategy, kw) -> dict:
+    """The golden a run must match.  The filter and the pair backend do not
+    change the output, so one golden serves every configuration of a
+    strategy; with clean_implied strategies 0 and 1 give the same minimal set.
+    Strategy 1's inferred-2/1 count and pair total depend on the backend and
+    the filter (the dense lattice counts over every capture of its table), so
+    only its default configuration checks them."""
+    if kw.get("clean_implied"):
+        return GOLDEN_S2L_CLEAN
+    if strategy == 1:
+        golden = GOLDEN_S2L[name]
+        if kw:
+            golden = {k: v for k, v in golden.items()
+                      if k not in ("n_inferred_21", "total_pairs")}
+        return golden
+    return GOLDEN[name] if strategy == 0 else GOLDEN_APPROX[(name, strategy)]
+
+
+def check_run(label, table, stats, golden) -> dict:
+    """Raise unless the run's CIND count, digest and the golden's statistics
+    (candidate or lattice counts) equal the JAX package's."""
+    digest = integrity.digest_hex(*integrity.digest_table(table))
+    got = dict(n_cinds=len(table), digest=digest,
+               **{k: stats.get(k) for k in golden
+                  if k not in ("triples", "n_cinds", "digest")})
+    want = {k: v for k, v in golden.items() if k != "triples"}
+    if got != want:
+        raise AssertionError(f"{label}: {got}, the JAX package gives {want}")
+    return want
+
+
 def run_main_path(name, triples, support, device, strategy: int = 0,
-                  reps: int = 3) -> dict:
+                  reps: int = 3, phase: str = "main", **kw) -> dict:
     """discover(strategy=...) through the public entry point, `reps` times; each
-    run has the kernel launch counts set to 0 just before and read just after,
-    every kernel of the path must have launched, and the CIND count, output
-    digest and (strategies 2, 3) candidate counts must equal the JAX package's."""
+    run has the kernel launch counts set to 0 just before and read just after
+    (and the probes' once-per-process check forgotten, so a run that reaches
+    K2 probes again), every kernel of the path must have launched, and the
+    CIND count, output digest and the golden's statistics must equal the JAX
+    package's.  Extra keywords go to discover (pair backend, filter)."""
     if triples_sha1(triples) != GOLDEN[name]["triples"]:
         raise AssertionError(f"{name}: generated triples differ from the "
                              f"ones the golden was recorded on")
-    golden = GOLDEN[name] if strategy == 0 else GOLDEN_APPROX[(name, strategy)]
-    walls = []
+    golden = golden_of(name, strategy, kw)
+    label = f"{name}, strategy {strategy} {kw}"
+    walls, peaks = [], []
     for _ in range(reps):
         stats = {}
+        kernels.reset_contains_check()
         kernels.reset_launches()
         torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
         t0 = time.perf_counter()
         table = rdfind_tpu_torch.discover(triples, support, strategy=strategy,
-                                          device=device, stats=stats)
+                                          device=device, stats=stats, **kw)
         torch.cuda.synchronize(device)
         walls.append(time.perf_counter() - t0)
+        peaks.append(torch.cuda.max_memory_allocated(device) - base)
         launches = dict(kernels.LAUNCHES)
-        idle = [k for k in PATH_KERNELS[strategy] if launches[k] <= 0]
+        idle = [k for k in path_kernels(strategy, kw) if launches[k] <= 0]
         if idle:
-            raise AssertionError(f"{name}, strategy {strategy}: the main path "
-                                 f"launched no {idle} kernel")
-        digest = integrity.digest_hex(*integrity.digest_table(table))
-        got = dict(n_cinds=len(table), digest=digest,
-                   **{k: stats[k] for k in golden
-                      if k not in ("triples", "n_cinds", "digest")})
-        want = {k: v for k, v in golden.items() if k != "triples"}
-        if got != want:
-            raise AssertionError(f"{name}, strategy {strategy}: {got}, the "
-                                 f"JAX package gives {want}")
+            raise AssertionError(f"{label}: the main path launched no {idle} "
+                                 f"kernel")
+        want = check_run(label, table, stats, golden)
     wall = sorted(walls)[len(walls) // 2]
-    row = dict(phase="main", workload=name, strategy=strategy,
+    row = dict(phase=phase, workload=name, strategy=strategy, options=kw,
                n_triples=len(triples), min_support=support, wall_s=wall,
-               wall_s_runs=walls, n_cinds=len(table), digest=digest,
+               wall_s_runs=walls, n_cinds=len(table), digest=want["digest"],
                golden_match=True, checked=want,
                cinds_per_s=len(table) / wall,
                pairs_per_s=stats["total_pairs"] / wall,
-               total_pairs=stats["total_pairs"], launches=launches,
-               dense_plan=stats["dense_plan"])
+               total_pairs=stats["total_pairs"],
+               pair_backend=stats.get("pair_backend"),
+               n_pair_chunks=stats.get("n_pair_chunks", 0),
+               peak_mem_bytes=max(peaks), launches=launches,
+               kernels_on_path=list(path_kernels(strategy, kw)) or
+               "none: this path launches no hand-written kernel",
+               dense_plan=stats.get("dense_plan"))
     emit(row)
     return row
 
 
-def profile_main_path(name, triples, support, device, strategy: int) -> dict:
+def profile_main_path(name, triples, support, device, strategy: int,
+                      **kw) -> dict:
     """One more discover under torch.profiler (launches not counted): the
     device's busy time (union of its kernel and copy intervals) and idle share
-    of the wall time, the host time of each named stage range, and the device
-    time by kernel name."""
+    of the wall time, the host time of each named range (summed over its
+    repeats, with their count), and the device time by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,14 +634,16 @@ def profile_main_path(name, triples, support, device, strategy: int) -> dict:
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rdfind_tpu_torch.discover(triples, support, strategy=strategy,
-                                  device=device)
+                                  device=device, **kw)
         torch.cuda.synchronize(device)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    stages, spans, by_name = {}, [], {}
+    stages, counts, spans, by_name = {}, {}, [], {}
     for e in prof.events():
         if e.name.startswith("rdfind."):
             if e.device_type == DeviceType.CPU:
-                stages[e.name] = e.time_range.elapsed_us() / 1e3
+                stages[e.name] = stages.get(e.name, 0.0) \
+                    + e.time_range.elapsed_us() / 1e3
+                counts[e.name] = counts.get(e.name, 0) + 1
         elif e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             key = e.name[:80]
@@ -572,13 +658,54 @@ def profile_main_path(name, triples, support, device, strategy: int) -> dict:
             busy_us += hi - reach
             reach = hi
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    row = dict(phase="profile", workload=name, strategy=strategy,
+    row = dict(phase="profile", workload=name, strategy=strategy, options=kw,
                wall_ms=wall_ms,
                device_busy_ms=busy_us / 1e3,
                idle_share=1.0 - busy_us / 1e3 / wall_ms,
                stages_host_ms=stages,
+               stage_calls={k: v for k, v in counts.items() if v > 1},
                top_device_ops=[dict(name=k, device_ms=v[0], calls=v[1])
                                for k, v in top])
+    emit(row)
+    return row
+
+
+def write_nt(path, triples) -> Dictionary:
+    """The id triples as an N-Triples file of IRIs ``<e{id}>``, and the
+    dictionary that decodes the ids to those terms."""
+    ids = np.asarray(triples, np.int64)
+    terms = np.array([f"<e{i}>" for i in range(int(ids.max()) + 1)],
+                     dtype=object)
+    with open(path, "w") as f:
+        for s, p, o in ids:
+            f.write(f"{terms[s]} {terms[p]} {terms[o]} .\n")
+    return Dictionary(terms)
+
+
+def run_cli_default(triples, device) -> dict:
+    """The CLI with no flag but ``--support 10`` on the headline as N-Triples
+    (strategy 1 without the filter: the chunked walk), held line for line
+    against the filtered strategy-1 run's CINDs decoded to the same terms."""
+    os.makedirs(SCRATCH, exist_ok=True)
+    nt, out = os.path.join(SCRATCH, "headline.nt"), \
+        os.path.join(SCRATCH, "cli_out.txt")
+    dictionary = write_nt(nt, triples)
+    want = rdfind_tpu_torch.discover(triples, 10, strategy=1, device=device)
+    check_run("headline, strategy 1 (for the CLI)", want, {},
+              {k: GOLDEN_S2L["headline"][k] for k in ("n_cinds", "digest")})
+    want_lines = sorted(c.pretty() for c in CindTable.decoded(want,
+                                                              dictionary))
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    rc = cli.main([nt, "--support", "10", "--output", out])
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        got_lines = f.read().splitlines()
+    if rc != 0 or got_lines != want_lines:
+        raise AssertionError(f"CLI default run: rc {rc}, {len(got_lines)} "
+                             f"lines, want {len(want_lines)} golden lines")
+    row = dict(phase="cli", argv=["headline.nt", "--support", "10"],
+               wall_s=wall, n_lines=len(got_lines), golden_match=True)
     emit(row)
     return row
 
@@ -620,12 +747,12 @@ def main() -> int:
     probe_rows = run_probe_cases(device)
 
     main_rows = {}
-    for strategy in (0, 2, 3):
+    for strategy in (0, 1, 2, 3):
         for name, (triples, support) in data.items():
             main_rows[(name, strategy)] = run_main_path(
                 name, triples, support, device, strategy=strategy)
 
-    for strategy in (0, 2, 3):
+    for strategy in (0, 1, 2, 3):
         for name, (triples, support) in data.items():
             profile_main_path(name, triples, support, device, strategy)
 
@@ -639,26 +766,32 @@ def main() -> int:
         compare_k1(case["args"], case["kw"])
     emit(dict(phase="sweep_check", workload=REAL_SIZE,
               launches_checked=len(p["launches"]), match=True))
+    del p
 
     # The CLI's default skips the frequent-condition filter: on the headline
     # triples that is ~20x the captures.  The filter only prunes captures that
     # cannot be in a CIND, so the output must still equal the headline golden.
-    stats = {}
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    table = rdfind_tpu_torch.discover(data["headline"][0], 10, strategy=0,
-                                      device=device, stats=stats,
-                                      use_frequent_condition_filter=False)
-    torch.cuda.synchronize(device)
-    wall = time.perf_counter() - t0
-    digest = integrity.digest_hex(*integrity.digest_table(table))
-    if (len(table), digest) != (GOLDEN["headline"]["n_cinds"],
-                                GOLDEN["headline"]["digest"]):
-        raise AssertionError(f"unfiltered headline: {len(table)} CINDs / "
-                             f"digest {digest} differ from the golden")
-    emit(dict(phase="unfiltered", workload="headline", wall_s=wall,
-              n_cinds=len(table), digest=digest, golden_match=True,
-              launches=dict(kernels.LAUNCHES), dense_plan=stats["dense_plan"]))
+    # Strategy 1's capture axis is then past SINGLE_SHOT_C: its chunked walk.
+    headline, support = data["headline"]
+    unfiltered = dict(use_frequent_condition_filter=False)
+    run_main_path("headline", headline, support, device, strategy=0,
+                  reps=1, phase="unfiltered", **unfiltered)
+    run_main_path("headline", headline, support, device, strategy=1,
+                  phase="unfiltered", **unfiltered)
+    profile_main_path("headline", headline, support, device, 1, **unfiltered)
+    run_main_path("headline", headline, support, device, strategy=1, reps=1,
+                  phase="clean_implied", clean_implied=True)
+    run_main_path("headline", headline, support, device, strategy=0, reps=1,
+                  phase="clean_implied", clean_implied=True)
+    run_cli_default(headline, device)
+
+    # The chunked pair backend, forced where "auto" would take the dense one.
+    for strategy in (0, 2, 3):
+        run_main_path("headline", headline, support, device,
+                      strategy=strategy, phase="chunked",
+                      pair_backend="chunked")
+        profile_main_path("headline", headline, support, device, strategy,
+                          pair_backend="chunked")
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.

@@ -6,9 +6,10 @@ on the CUDA card unless the caller passes ``device="cpu"``; with no device and n
 card they raise.  On a CUDA tensor every kernel wrapper launches its hand-written
 kernel (``csrc/``); on a CPU tensor it runs the kernel's plain PyTorch version.
 
-Ported so far, on one device: strategy 0 (AllAtOnce, dense path), strategy 2
-(ApproximateAllAtOnce) and strategy 3 (LateBB), the last two with dense
-verification.  What remains is listed in ROADMAP.md.
+Ported so far, on one device: the four traversal strategies, 0 (AllAtOnce), 1
+(SmallToLarge, the CLI's default), 2 (ApproximateAllAtOnce) and 3 (LateBB), each
+with the dense and the chunked pair backend.  What remains is listed in
+ROADMAP.md.
 """
 
 __version__ = "0.1.0"
@@ -19,7 +20,7 @@ def discover(triples, min_support: int = 10, strategy: int = 1, *,
     """One-call CIND discovery over an (N, 3) int32 id-triple table.
 
     ``strategy`` follows the reference's ids: 0 = all-at-once, 1 = small-to-large,
-    2 = approximate all-at-once, 3 = late-BB.  0, 2 and 3 are ported; 1 raises.
+    2 = approximate all-at-once, 3 = late-BB.
     Extra kwargs go to the strategy (``projections=``, ``stats=``,
     ``clean_implied=``, ...).  Returns a ``data.CindTable``.
     """
@@ -27,7 +28,6 @@ def discover(triples, min_support: int = 10, strategy: int = 1, *,
 
     fn = STRATEGIES.get(strategy)
     if fn is None:
-        raise ValueError(f"traversal strategy {strategy} is not yet ported to "
-                         f"the PyTorch/CUDA package (ported: "
-                         f"{sorted(STRATEGIES)}); see ROADMAP.md")
+        raise ValueError(f"unknown traversal strategy {strategy} (one of "
+                         f"{sorted(STRATEGIES)})")
     return fn(triples, min_support, device=device, **kwargs)

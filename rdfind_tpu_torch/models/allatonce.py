@@ -1,14 +1,24 @@
-"""AllAtOnce traversal strategy (strategy 0) on a single device, dense path.
+"""AllAtOnce traversal strategy (strategy 0) on a single device.
 
-One pass over the data: emit join candidates, group them into join lines, build the
-0/1 membership matrix as Mᵀ (captures x lines, the K-major layout of kernel K1),
-and read every CIND off cooc = Mᵀ M with the fused sweep (ops/cooc.py, K1).  The
-frequent-condition prefilter runs at emission; captures with fewer than
-min_support lines are dead rows of Mᵀ that can never pass the CIND test.
+One pass over the data: emit join candidates, group them into join lines, and read
+every CIND off the co-occurrence counts, by one of two pair backends:
 
-Shapes are exact at every stage (PyTorch runs eagerly); the host reads a few
-scalars between stages, the set-bit index pairs of the verdict, and the final
-capture-table columns.
+  dense ("matmul") — build the 0/1 membership matrix as Mᵀ (captures x lines, the
+      K-major layout of kernel K1) and sweep cooc = Mᵀ M with the fused kernel
+      (ops/cooc.py, K1).  Captures with fewer than min_support lines are dead
+      rows of Mᵀ that can never pass the CIND test;
+  chunked — greedily pack whole join lines into chunks of at most
+      ``pair_chunk_budget`` ordered pairs, emit each chunk's pairs on the device
+      (ops/pairs.py), sort and count them there, pull the chunk's distinct
+      (dep, ref, count) rows, and merge all chunks' rows on the device before
+      the CIND test.  It bounds device memory by the budget, where the dense
+      plan's Mᵀ would not fit.
+
+"auto" runs the dense backend when Mᵀ fits the device budget and the chunked one
+otherwise.  The frequent-condition prefilter runs at emission.  Shapes are exact
+at every stage (PyTorch runs eagerly); the chunk stage keeps fixed shapes, so a
+chunk queues on the device with no host sync, and the loop pulls each chunk while
+the next one computes.
 """
 
 from __future__ import annotations
@@ -20,14 +30,22 @@ from torch.profiler import record_function
 from .. import devices
 from ..data import CindTable
 from ..obs import integrity, metrics
-from ..ops import cooc, frequency, minimality, segments
+from .. import conditions as cc
+from ..ops import cooc, frequency, minimality, pairs, segments
 from ..ops.emission import emit_join_candidates
 
+# Ordered pairs one chunk of the chunked backend materializes at most (the JAX
+# package's budget); a line with more pairs is a chunk of its own.
+PAIR_CHUNK_BUDGET = 1 << 22
+PAIR_BACKENDS = ("auto", "matmul", "chunked")
+# Sort key of an invalid pair slot: after every (dep << 32) | ref key.
+_KEY_SENTINEL = torch.iinfo(torch.int64).max
 
-class DensePlanTooLarge(RuntimeError):
-    """The membership matrix does not fit the device budget.  The chunked
-    sort-and-count fallback of the JAX package is not ported yet (ROADMAP.md,
-    queue 1 item 1)."""
+
+def check_pair_backend(pair_backend: str) -> None:
+    if pair_backend not in PAIR_BACKENDS:
+        raise ValueError(f"unknown pair_backend {pair_backend!r} (one of "
+                         f"{', '.join(PAIR_BACKENDS)})")
 
 
 def _emit_and_intern(triples, min_support: int, *, projections: str,
@@ -172,7 +190,8 @@ def filter_ar_implied_cinds(table: CindTable, mined_rules) -> CindTable:
 
 def _discover_dense(triples, min_support: int, projections: str,
                     use_fc_filter: bool, use_ars: bool, clean_implied: bool,
-                    stats) -> CindTable:
+                    stats) -> CindTable | None:
+    """The dense backend; None when Mᵀ does not fit the device budget."""
     # Each stage is a named profiler range ("rdfind.<stage>"): a few
     # microseconds when no profiler runs, the per-stage breakdown when one does.
     with record_function("rdfind.prepare"):
@@ -186,11 +205,7 @@ def _discover_dense(triples, min_support: int, projections: str,
         return CindTable.empty()
     plan = cooc.dense_plan(n_lines, num_caps, triples.device)
     if plan is None:
-        raise DensePlanTooLarge(
-            f"the {cooc.round_up(n_lines, cooc.LINE_MULT)} x "
-            f"{cooc.cap_pad(num_caps)} membership matrix exceeds the device "
-            f"budget of {cooc.m_budget_bytes(triples.device)} bytes; the "
-            f"chunked fallback is the next slice of the port (ROADMAP.md)")
+        return None
     metrics.struct_set(stats, "dense_plan", plan.describe())
     metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
 
@@ -232,6 +247,235 @@ def _discover_dense(triples, min_support: int, projections: str,
                             clean_implied, stats)
 
 
+def _chunk_boundaries(pairs_per_line: np.ndarray, budget: int) -> list[int]:
+    """Greedy packing of whole lines into chunks of <= budget pairs each.
+
+    Returns line-index boundaries [0, ..., num_lines]; a single line over budget
+    gets its own chunk.
+    """
+    bounds = [0]
+    acc = 0
+    for i, p in enumerate(pairs_per_line):
+        if acc > 0 and acc + p > budget:
+            bounds.append(i)
+            acc = 0
+        acc += int(p)
+    bounds.append(len(pairs_per_line))
+    return bounds
+
+
+def _stage_pair_counts(line_cap, pos, length, start_idx, *, capacity: int,
+                       dep_f=None, ref_f=None, balanced: bool = False):
+    """One chunk: emit its pairs, sort and count them.  Fixed shapes, so the
+    chunk queues on the device with no host sync.
+
+    Rows are the chunk's (line-sorted) rows: capture ids, position in line, line
+    length and line start (chunk-local).  With `dep_f` / `ref_f` (bool per row)
+    a pair survives only when its dependent row is dep-flagged and its partner
+    ref-flagged; unflagged dependent rows take no slot (``emit``), so
+    `capacity` counts the slots of dep-flagged rows only.  balanced=True emits
+    each unordered pair once (every row flagged on both sides).
+
+    Returns (key, cnt, n_out): the distinct (dep << 32) | ref keys ascending in
+    key[:n_out], their counts in cnt[:n_out], n_out a 0-d tensor.
+    """
+    dev = line_cap.device
+    emit = None if balanced else dep_f
+    row, partner, valid = pairs.emit_pair_indices(
+        pos, length, start_idx, capacity, balanced=balanced, emit=emit)
+    if balanced and dep_f is not None:
+        valid &= dep_f[row]
+    if ref_f is not None:
+        valid &= ref_f[partner]
+    cap = line_cap.to(torch.int64)
+    key = torch.where(valid, (cap[row] << 32) | cap[partner], _KEY_SENTINEL)
+    key = torch.sort(key).values
+    real = key != _KEY_SENTINEL  # a prefix of the sorted slots
+    starts = real.clone()
+    starts[1:] &= key[1:] != key[:-1]
+    gid = torch.cumsum(starts, 0) - 1
+    n_out = starts.sum()
+    # Compact the run starts to the front (slot capacity + 1 takes the other
+    # rows and is never read).  A run's count is the gap to the next run's
+    # first slot; `first` is pre-filled with the number of real slots, where
+    # the last run ends.
+    target = torch.where(starts, gid, capacity + 1)
+    out_key = torch.full((capacity + 2,), _KEY_SENTINEL, dtype=torch.int64,
+                         device=dev).scatter_(0, target, key)
+    first = real.sum().expand(capacity + 2).clone().scatter_(
+        0, target, torch.arange(capacity, device=dev))
+    cnt = (first[1:capacity + 1] - first[:capacity]).to(torch.int32)
+    return out_key[:capacity], cnt, n_out
+
+
+def _stage_to_host(chunk):
+    """Start a chunk's device-to-host copy: non-blocking into pinned host
+    buffers, fenced by a CUDA event.  CPU chunks pass through."""
+    key, cnt, n_out = chunk
+    if key.device.type != "cuda":
+        return chunk, None
+    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 for t in chunk)
+    for h, t in zip(host, chunk):
+        h.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _pull_chunk(staged):
+    """Wait for a staged chunk's copy (the loop's one host sync per chunk) and
+    return its host (dep, ref, cnt) int64 arrays."""
+    (key, cnt, n_out), done = staged
+    if done is not None:
+        done.synchronize()
+    n = int(n_out)
+    key = key[:n].numpy()
+    return key >> 32, key & 0xFFFFFFFF, cnt[:n].numpy().astype(np.int64)
+
+
+def line_runs(line_val_h):
+    """(first row, length) int64 arrays of the runs of equal join values."""
+    n = line_val_h.shape[0]
+    starts = np.empty(n, bool)
+    starts[:1] = True
+    starts[1:] = line_val_h[1:] != line_val_h[:-1]
+    first = np.flatnonzero(starts)
+    return first, np.diff(np.append(first, n)).astype(np.int64)
+
+
+def iter_chunk_pairs(line_val_h, line_cap_h, budget: int, device, *,
+                     dep_f_h=None, ref_f_h=None, balanced: bool = False,
+                     stats=None):
+    """Yield each chunk's (dep, ref, cnt) host int64 arrays: the distinct
+    flagged co-occurrence pairs of its lines and their counts.
+
+    line_val_h / line_cap_h: host join-line rows sorted by (value, capture).
+    Whole lines are packed into chunks of <= `budget` pairs of the full lines
+    (halved when balanced), as the JAX package packs them.  Every row array
+    reaches the device in one copy before the loop; then chunk i + 1 is queued
+    on the device before chunk i is pulled, so the host's work on chunk i
+    overlaps the device's on chunk i + 1; the pull of a chunk is the loop's
+    only host sync.  ``n_pair_chunks`` counts chunks.
+    """
+    n = line_val_h.shape[0]
+    first, lens = line_runs(line_val_h)
+    pairs_per_line = lens * (lens - 1)
+    if balanced:
+        pairs_per_line //= 2  # each unordered pair once
+    start_h = np.repeat(first, lens)
+    pos_h = np.arange(n, dtype=np.int64) - start_h
+    len_h = np.repeat(lens, lens)
+    if balanced:
+        slots_h = ((len_h - 1) // 2
+                   + ((len_h % 2 == 0) & (pos_h < len_h // 2)))
+    else:
+        slots_h = np.where(dep_f_h, len_h - 1, 0) if dep_f_h is not None \
+            else len_h - 1
+    cum_slots = np.concatenate([[0], np.cumsum(slots_h)])
+
+    def dev(a):
+        # Through pinned memory, so the copy queues without a host sync.
+        if a is None:
+            return None
+        t = torch.as_tensor(a)
+        if torch.device(device).type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    cap_d, pos_d, len_d, start_d, dep_d, ref_d = (
+        dev(a) for a in (line_cap_h, pos_h, len_h, start_h, dep_f_h, ref_f_h))
+    bounds = _chunk_boundaries(pairs_per_line, budget)
+    row_of = np.append(first, n)
+    pend = None
+    for lo_line, hi_line in zip(bounds[:-1], bounds[1:]):
+        rs, re = int(row_of[lo_line]), int(row_of[hi_line])
+        capacity = int(cum_slots[re] - cum_slots[rs])
+        if capacity == 0:
+            continue
+        metrics.counter_add(stats, "n_pair_chunks")
+        sl = slice(rs, re)
+        with record_function("rdfind.chunk"):
+            staged = _stage_to_host(_stage_pair_counts(
+                cap_d[sl], pos_d[sl], len_d[sl], start_d[sl] - rs,
+                capacity=capacity,
+                dep_f=None if dep_d is None else dep_d[sl],
+                ref_f=None if ref_d is None else ref_d[sl],
+                balanced=balanced))
+        if pend is not None:
+            yield _pull_chunk(pend)
+        pend = staged
+    if pend is not None:
+        yield _pull_chunk(pend)
+
+
+def _stage_merge(dep, ref, cnt, min_support: int, dep_count, cap_code, cap_v1,
+                 cap_v2):
+    """Merge the chunks' pair counts, apply the CIND test, drop trivially
+    implied pairs.  Device tensors in; (dep_id, ref_id, support) device int64
+    tensors out, in (dep, ref) order.
+
+    The implied rule keeps the equal-code quirk of the reference's
+    Condition.isImpliedBy: a ref whose code equals the dep's is implied when
+    its v1 matches the dep's first-subcapture value.
+    """
+    key, inv = torch.unique((dep << 32) | ref, return_inverse=True)
+    cooc_cnt = torch.zeros(key.shape[0], dtype=torch.int64,
+                           device=key.device).index_add_(0, inv, cnt)
+    d, r = key >> 32, key & 0xFFFFFFFF
+    support = dep_count[d]
+    is_cind = (cooc_cnt == support) & (support >= min_support)
+    d_code, r_code = cap_code[d], cap_code[r]
+    implied = cc.is_subcode(r_code, d_code) & torch.where(
+        cc.first_subcapture(d_code) == r_code, cap_v1[r] == cap_v1[d],
+        cap_v1[r] == cap_v2[d])
+    keep = is_cind & ~implied
+    return d[keep], r[keep], support[keep]
+
+
+def _discover_chunked(triples, min_support: int, projections: str,
+                      use_fc_filter: bool, use_ars: bool, clean_implied: bool,
+                      pair_chunk_budget: int, stats) -> CindTable:
+    """The chunked backend: phase A's join lines, the chunk loop, one merge."""
+    with record_function("rdfind.prepare"):
+        st = prepare_join_lines(triples, min_support, projections,
+                                use_fc_filter, use_ars, stats)
+    if st is None:
+        return CindTable.empty()
+    _, lens = line_runs(st["line_val_h"])
+    total = int((lens * (lens - 1)).sum())
+    metrics.set_many(stats, n_lines=int(lens.size), total_pairs=total,
+                     max_line=int(lens.max()))
+    if total == 0:
+        return CindTable.empty()
+    metrics.gauge_set(stats, "pair_backend", "chunked")
+    dev = triples.device
+    with record_function("rdfind.chunks"):
+        parts = list(iter_chunk_pairs(st["line_val_h"], st["line_cap_h"],
+                                      pair_chunk_budget, dev, stats=stats))
+    if not any(p[0].size for p in parts):
+        return CindTable.empty()
+    with record_function("rdfind.merge"):
+        cat = [torch.as_tensor(np.concatenate([p[k] for p in parts])).to(dev)
+               for k in range(3)]
+
+        def col(name):
+            return torch.as_tensor(st[name]).to(dev)
+
+        d, r, sup = (t.cpu().numpy() for t in _stage_merge(
+            *cat, min_support, col("dep_count"), col("cap_code"),
+            col("cap_v1"), col("cap_v2")))
+    if d.size == 0:
+        return CindTable.empty()
+    code, v1, v2 = st["cap_code"], st["cap_v1"], st["cap_v2"]
+    table = CindTable(dep_code=code[d], dep_v1=v1[d], dep_v2=v2[d],
+                      ref_code=code[r], ref_v1=v1[r], ref_v2=v2[r],
+                      support=sup)
+    with record_function("rdfind.postprocess"):
+        return _postprocess(table, triples, min_support, use_ars,
+                            clean_implied, stats)
+
+
 def _postprocess(table, triples, min_support, use_ars, clean_implied, stats):
     if use_ars:
         rules = frequency.mine_association_rules(triples, min_support)
@@ -247,25 +491,36 @@ def discover(triples, min_support: int, projections: str = "spo",
              use_frequent_condition_filter: bool = True,
              use_association_rules: bool = False,
              clean_implied: bool = False,
+             pair_chunk_budget: int = PAIR_CHUNK_BUDGET,
              pair_backend: str = "auto",
              stats: dict | None = None,
              device=None) -> CindTable:
     """Discover all CINDs in an (N, 3) int32 triple-id table.
 
     ``triples`` is a numpy array or a tensor; it moves to ``device`` (CUDA unless
-    the caller passes "cpu").  ``pair_backend`` "auto" and "matmul" both run the
-    dense sweep; when M does not fit the device budget, DensePlanTooLarge is
-    raised (the chunked backend is not ported yet, and there is no silent
-    fallback).  If ``stats`` is a dict it is filled with pipeline statistics.
+    the caller passes "cpu").  ``pair_backend`` "matmul" runs the dense sweep
+    and raises ValueError when Mᵀ does not fit the device budget, "chunked" the
+    chunk loop (at most ``pair_chunk_budget`` pairs per chunk), "auto" the dense
+    sweep when it fits and the chunk loop otherwise.  If ``stats`` is a dict it
+    is filled with pipeline statistics.
     """
-    if pair_backend not in ("auto", "matmul"):
-        raise ValueError(f"pair_backend {pair_backend!r} is not ported yet; "
-                         f"the port runs the dense sweep ('auto' or 'matmul')")
+    check_pair_backend(pair_backend)
     triples = triples_on(triples, devices.resolve(device))
     if triples.shape[0] == 0 or not any(ch in projections for ch in "spo"):
         return CindTable.empty()
     min_support = max(int(min_support), 1)
     use_ars = use_association_rules and use_frequent_condition_filter
-    return _discover_dense(triples, min_support, projections,
-                           use_frequent_condition_filter, use_ars,
-                           clean_implied, stats)
+    if pair_backend != "chunked":
+        # Whether the dense plan fits is known only after candidate prep, so
+        # a fallback pays emission and interning twice.
+        table = _discover_dense(triples, min_support, projections,
+                                use_frequent_condition_filter, use_ars,
+                                clean_implied, stats)
+        if table is not None:
+            return table
+        if pair_backend == "matmul":
+            raise ValueError("pair_backend='matmul' but the membership "
+                             "matrix does not fit the device budget")
+    return _discover_chunked(triples, min_support, projections,
+                             use_frequent_condition_filter, use_ars,
+                             clean_implied, pair_chunk_budget, stats)

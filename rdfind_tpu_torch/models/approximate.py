@@ -20,9 +20,11 @@ output equals strategy 0's raw output.  Phase A (the join-line rows) is
 
 The host holds the (value, capture)-sorted rows and the capture table; the
 sketches, K2's tiles and the products stay on the device, and only candidate
-index pairs and their counts reach the host.  The JAX package's chunked host
-verification is not ported: where the dense verification does not fit,
-``DensePlanTooLarge`` is raised (ROADMAP.md, queue 1 item 1).
+index pairs and their counts reach the host.  Where the dense verification does
+not apply (capture axis above SINGLE_SHOT_C, or the membership above the device
+budget), or ``pair_backend="chunked"`` asks for it, round 2 counts the
+candidates' co-occurrence pairs chunk by chunk instead
+(``small_to_large._chunked_cooc``).
 """
 
 from __future__ import annotations
@@ -217,47 +219,52 @@ def _record_backend(stats, stat_key, backend):
                       backend if prev in (None, backend) else "mixed")
 
 
-def verify_candidates(st, cand_dep, cand_ref, min_support, *, stats, stat_key,
-                      device):
+def verify_candidates(st, cand_dep, cand_ref, min_support, *, pair_backend,
+                      pair_chunk_budget, stats, stat_key, device):
     """Exact verification of candidate (dep, ref) pairs: host (d, r, sup) int64
     arrays of the pairs that are CINDs, minus the trivially implied ones.
 
-    Shared by the approximate and LateBB strategies.  Raises
-    DensePlanTooLarge where the dense verification does not fit: the JAX
-    package's chunked host loop is not ported (ROADMAP.md, queue 1 item 1).
+    Shared by the approximate and LateBB strategies: the dense product's
+    gathered counts when it applies ("auto", "matmul"; "matmul" raises
+    ValueError when it does not), otherwise the chunked loop of the
+    small-to-large strategy.
     """
     if len(cand_dep) == 0:
         z = np.zeros(0, np.int64)
         return z, z, z
     num_caps = st["num_caps"]
-    dep_ok = np.zeros(num_caps, bool)
-    dep_ok[cand_dep] = True
-    ref_ok = np.zeros(num_caps, bool)
-    ref_ok[cand_ref] = True
-    cnt = _dense_verify_counts(st["line_val_h"], st["line_cap_h"], num_caps,
-                               cand_dep, cand_ref, dep_ok, ref_ok, stats,
-                               stat_key, device)
-    if cnt is None:
-        raise allatonce.DensePlanTooLarge(
-            f"the dense verification of {len(cand_dep)} candidates over "
-            f"{num_caps} captures does not fit (capture axis above "
-            f"{cooc.SINGLE_SHOT_C} or membership above the device budget); "
-            f"the chunked verification is ROADMAP.md queue 1 item 1")
-    _record_backend(stats, stat_key, "matmul")
-    sup_all = st["dep_count"][cand_dep]
-    is_cind = (cnt == sup_all) & (sup_all >= min_support)
-    is_cind &= ~small_to_large._implied_mask(
-        cand_dep, cand_ref, st["cap_code"], st["cap_v1"], st["cap_v2"])
-    return cand_dep[is_cind], cand_ref[is_cind], sup_all[is_cind]
+    cnt = None
+    if pair_backend != "chunked":
+        dep_ok = np.zeros(num_caps, bool)
+        dep_ok[cand_dep] = True
+        ref_ok = np.zeros(num_caps, bool)
+        ref_ok[cand_ref] = True
+        cnt = _dense_verify_counts(st["line_val_h"], st["line_cap_h"],
+                                   num_caps, cand_dep, cand_ref, dep_ok,
+                                   ref_ok, stats, stat_key, device)
+        if cnt is None and pair_backend == "matmul":
+            raise ValueError("pair_backend='matmul' but the dense plan does "
+                             "not fit the single-shot budget")
+    if cnt is not None:
+        _record_backend(stats, stat_key, "matmul")
+        sup_all = st["dep_count"][cand_dep]
+        is_cind = (cnt == sup_all) & (sup_all >= min_support)
+        is_cind &= ~small_to_large._implied_mask(
+            cand_dep, cand_ref, st["cap_code"], st["cap_v1"], st["cap_v2"],
+            device)
+        return cand_dep[is_cind], cand_ref[is_cind], sup_all[is_cind]
 
+    _record_backend(stats, stat_key, "chunked")
 
-def check_pair_backend(pair_backend: str) -> None:
-    if pair_backend == "chunked":
-        raise ValueError("pair_backend 'chunked' is not ported yet (ROADMAP.md, "
-                         "queue 1 item 1); the port verifies with the dense "
-                         "product ('auto' or 'matmul')")
-    if pair_backend not in ("auto", "matmul"):
-        raise ValueError(f"unknown pair_backend {pair_backend!r}")
+    def cooc_fn(dep_ok, ref_ok, key):
+        return small_to_large._chunked_cooc(
+            st["line_val_h"], st["line_cap_h"], dep_ok, ref_ok,
+            pair_chunk_budget, stats, key, device)
+
+    return small_to_large._verify_level(
+        cooc_fn, cand_dep, cand_ref, num_caps, st["dep_count"],
+        st["cap_code"], st["cap_v1"], st["cap_v2"], min_support, stat_key,
+        device)
 
 
 def table_of(st, d, r, sup) -> CindTable:
@@ -272,6 +279,7 @@ def discover(triples, min_support: int, projections: str = "spo",
              use_frequent_condition_filter: bool = True,
              use_association_rules: bool = False,
              clean_implied: bool = False,
+             pair_chunk_budget: int = allatonce.PAIR_CHUNK_BUDGET,
              sketch_bits: int = sketch.DEFAULT_BITS,
              sketch_hashes: int = sketch.DEFAULT_HASHES,
              pair_backend: str = "auto",
@@ -280,12 +288,13 @@ def discover(triples, min_support: int, projections: str = "spo",
     """Discover all CINDs; raw output equals allatonce.discover's raw output.
 
     ``triples`` is an (N, 3) int32 array or tensor; it moves to ``device`` (CUDA
-    unless the caller passes "cpu").  ``pair_backend`` "auto" and "matmul" both
-    verify with the dense product; "chunked" raises (not ported).  If ``stats``
-    is a dict it is filled with pipeline statistics, ``n_sketch_candidates``
-    among them.
+    unless the caller passes "cpu").  ``pair_backend`` selects round 2's
+    verification: "matmul" the dense product, "chunked" the chunk loop (at most
+    ``pair_chunk_budget`` pairs per chunk), "auto" the dense product when it
+    applies.  Round 1 does not depend on it.  If ``stats`` is a dict it is
+    filled with pipeline statistics, ``n_sketch_candidates`` among them.
     """
-    check_pair_backend(pair_backend)
+    allatonce.check_pair_backend(pair_backend)
     dev = devices.resolve(device)
     triples = allatonce.triples_on(triples, dev)
     min_support = max(int(min_support), 1)
@@ -310,9 +319,10 @@ def discover(triples, min_support: int, projections: str = "spo",
     metrics.gauge_set(stats, "n_sketch_candidates", len(cand_dep))
     del sketches  # free the device memory before the membership of round 2
     with record_function("rdfind.verify"):
-        d, r, sup = verify_candidates(st, cand_dep, cand_ref, min_support,
-                                      stats=stats, stat_key="pairs_verify",
-                                      device=dev)
+        d, r, sup = verify_candidates(
+            st, cand_dep, cand_ref, min_support, pair_backend=pair_backend,
+            pair_chunk_budget=pair_chunk_budget, stats=stats,
+            stat_key="pairs_verify", device=dev)
     with record_function("rdfind.postprocess"):
         return allatonce._postprocess(table_of(st, d, r, sup), triples,
                                       min_support, use_ars, clean_implied,

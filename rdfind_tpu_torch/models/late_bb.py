@@ -30,6 +30,7 @@ def discover(triples, min_support: int, projections: str = "spo",
              use_frequent_condition_filter: bool = True,
              use_association_rules: bool = False,
              clean_implied: bool = False,
+             pair_chunk_budget: int = allatonce.PAIR_CHUNK_BUDGET,
              sketch_bits: int = sketch.DEFAULT_BITS,
              sketch_hashes: int = sketch.DEFAULT_HASHES,
              pair_backend: str = "auto",
@@ -41,7 +42,7 @@ def discover(triples, min_support: int, projections: str = "spo",
     ``n_round{1,2}_candidates``, ``n_round{1,2}_cinds`` and
     ``pairs_round{1,2}``.
     """
-    approximate.check_pair_backend(pair_backend)
+    allatonce.check_pair_backend(pair_backend)
     dev = devices.resolve(device)
     triples = allatonce.triples_on(triples, dev)
     min_support = max(int(min_support), 1)
@@ -70,17 +71,19 @@ def discover(triples, min_support: int, projections: str = "spo",
         # Round 1: unary dependents, refs of both arities.
         c1_dep, c1_ref = cand_dep[dep_is_unary], cand_ref[dep_is_unary]
         d1, r1, sup1 = approximate.verify_candidates(
-            st, c1_dep, c1_ref, min_support, stats=stats,
+            st, c1_dep, c1_ref, min_support, pair_backend=pair_backend,
+            pair_chunk_budget=pair_chunk_budget, stats=stats,
             stat_key="pairs_round1", device=dev)
         metrics.set_many(stats, n_round1_candidates=len(c1_dep),
                          n_round1_cinds=len(d1))
         # Round 2: binary dependents, pruned by the round-1 CINDs.
         c2_dep, c2_ref = cand_dep[~dep_is_unary], cand_ref[~dep_is_unary]
         keep = small_to_large._prune_22_vs_12(c2_dep, c2_ref, d1, r1,
-                                              cap_code, cap_v1, cap_v2)
+                                              cap_code, cap_v1, cap_v2, dev)
         c2_dep, c2_ref = c2_dep[keep], c2_ref[keep]
         d2, r2, sup2 = approximate.verify_candidates(
-            st, c2_dep, c2_ref, min_support, stats=stats,
+            st, c2_dep, c2_ref, min_support, pair_backend=pair_backend,
+            pair_chunk_budget=pair_chunk_budget, stats=stats,
             stat_key="pairs_round2", device=dev)
         metrics.set_many(stats, n_round2_candidates=len(c2_dep),
                          n_round2_cinds=len(d2))

@@ -271,6 +271,100 @@ def packed_nonzero(packed, rows: int, cols: int):
     return idx[:, 0], idx[:, 1]
 
 
+# Bits of packed relation one decode batch holds on the device (each tile is
+# unpacked to one byte per bit for its count and its nonzero); a larger
+# relation decodes in row strips.  The JAX package's bound.
+EXTRACT_DEVICE_ELEMS = 1 << 28
+# Device bytes of decoded index pairs pending before one batched pull.
+PULL_BYTES_BUDGET = 1 << 28
+
+
+def extract_packed(packed, rows: int, cols: int):
+    """Decode a packed bool relation -> host (row, col) int64 index arrays.
+
+    The set bits are counted and decoded on the device, so only their index
+    pairs reach the host, never the bit matrix.  A relation over
+    EXTRACT_DEVICE_ELEMS bits decodes in row strips that each stay under it.
+    """
+    words = packed.shape[1]
+    total_bits = packed.shape[0] * words * 32
+    if total_bits <= EXTRACT_DEVICE_ELEMS:
+        return extract_packed_iter([lambda: (packed, rows, cols)],
+                                   total_bits)[0]
+    h = max(1, EXTRACT_DEVICE_ELEMS // (words * 32))
+    los = list(range(0, min(rows, packed.shape[0]), h))
+
+    def make(lo):
+        return lambda: (packed[lo:lo + h], min(rows - lo, h), cols)
+
+    strips = extract_packed_iter([make(lo) for lo in los],
+                                 min(h * words * 32, EXTRACT_DEVICE_ELEMS))
+    out_d = [d + lo for lo, (d, _) in zip(los, strips) if d.size]
+    out_r = [r for d, r in strips if d.size]
+    if not out_d:
+        z = np.zeros(0, np.int64)
+        return z, z
+    return np.concatenate(out_d), np.concatenate(out_r)
+
+
+def extract_packed_iter(thunks, tile_bits: int):
+    """Decode a stream of packed tiles with batched host pulls.
+
+    thunks: callables that each return one tile (packed, rows, cols); tiles may
+    differ in shape, and `tile_bits` bounds every tile's packed bits.  Tiles go
+    in batches of EXTRACT_DEVICE_ELEMS bits: one pull brings a batch's set-bit
+    counts, empty tiles are skipped, and the index pairs of the others come in
+    pulls of at most PULL_BYTES_BUDGET bytes (``torch.nonzero`` itself reads
+    each tile's size on the host, which the JAX package's sized nonzero does
+    not).  Returns [(rows, cols)] host int64 arrays in thunk order.
+    """
+    if tile_bits > EXTRACT_DEVICE_ELEMS:
+        return [extract_packed(*t()[:3]) for t in thunks]
+    out = [None] * len(thunks)
+    batch = max(1, EXTRACT_DEVICE_ELEMS // max(tile_bits, 1))
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    for lo in range(0, len(thunks), batch):
+        group = [(lo + j, *t()[:3]) for j, t in enumerate(thunks[lo:lo + batch])]
+        counts = torch.stack([
+            unpack_bits(_inbounds(p, r, c)).sum() for _, p, r, c in group])
+        pend, pend_bytes = [], 0
+
+        def drain():
+            nonlocal pend, pend_bytes
+            if pend:
+                flat = torch.cat([x for _, d, r in pend for x in (d, r)]).cpu()
+                at = 0
+                for k, d, _ in pend:
+                    n = d.numel()
+                    out[k] = (flat[at:at + n].numpy(),
+                              flat[at + n:at + 2 * n].numpy())
+                    at += 2 * n
+            pend, pend_bytes = [], 0
+
+        for n, (k, p, r, c) in zip(counts.tolist(), group):
+            if not n:
+                out[k] = empty
+                continue
+            pend.append((k, *packed_nonzero(p, r, c)))
+            pend_bytes += 16 * n
+            if pend_bytes >= PULL_BYTES_BUDGET:
+                drain()
+        drain()
+    return out
+
+
+def union_line_counts(m_t, mask, rows_per_step: int = 2048):
+    """Per-line count of the mask-flagged captures: the (l_pad,) int32
+    product maskᵀ Mᵀ, summed over row slices of Mᵀ so that no temporary
+    exceeds `rows_per_step` rows.  A plain torch product; no host sync."""
+    out = torch.zeros(m_t.shape[1], dtype=torch.int32, device=m_t.device)
+    mask = mask.to(torch.int8)
+    for lo in range(0, m_t.shape[0], rows_per_step):
+        sl = slice(lo, lo + rows_per_step)
+        out += (m_t[sl] * mask[sl, None]).sum(dim=0, dtype=torch.int32)
+    return out
+
+
 def fused_cind_tile(m_t, lo: int, width: int, cols: dict, rows: dict,
                     block_ids, n_real):
     """One launch of K1 over dep rows [lo, lo + width) of Mᵀ and every ref.

@@ -16,7 +16,8 @@ K2 ``packed_contains_matrix`` replaces ``pallas_kernels.packed_contains_matrix``
 the Bloom containment test of the approximate strategies on packed words.  P1
 ``repeat_probe`` and P2 ``pipeline_probe`` replace the TPU compiler probes
 ``_repeat_is_tile`` and ``emit_pipeline_supported``; they are built into K2's
-library and ``check_contains_library`` runs both before a candidate pass.
+library and ``check_contains_library`` runs both before the first candidate pass
+on a device.
 """
 
 from __future__ import annotations
@@ -326,13 +327,22 @@ def pipeline_probe_plain(x):
     return x.reshape(-1, 8, 128).sum(dim=0)
 
 
+# Devices whose contains library passed check_contains_library in this process.
+_CHECKED = set()
+
+
 def check_contains_library(device) -> None:
     """Run P1 and P2 on `device` at the TPU probes' shapes and raise unless they
     give the expected answers ([0, 1, 0, 1] and 2.0 everywhere).
 
-    The JAX package probes once per process; the port probes at the start of
-    each candidate pass, so every run that launches K2 has just checked the
-    library it launches from (two launches of a few microseconds)."""
+    Once per device and process, as the JAX package runs its probes once
+    (``functools.lru_cache``): a passed check is remembered, a failed one
+    raises and is not.  ``reset_contains_check`` forgets the passes."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device in _CHECKED:
+        return
     x = torch.arange(2, dtype=torch.int32, device=device).reshape(1, 2)
     lanes = repeat_probe(x).cpu().tolist()
     total = pipeline_probe(torch.ones((16, 128), dtype=torch.float32,
@@ -341,3 +351,8 @@ def check_contains_library(device) -> None:
         raise RuntimeError(f"contains library self-check failed: repeat probe "
                            f"{lanes}, pipeline probe min {float(total.min())} "
                            f"max {float(total.max())} (want 2.0)")
+    _CHECKED.add(device)
+
+
+def reset_contains_check() -> None:
+    _CHECKED.clear()

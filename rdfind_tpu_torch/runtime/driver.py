@@ -1,13 +1,14 @@
 """The RDFind job driver of the port: read -> parse -> intern -> discover -> sink.
 
-Thin: the Python ingest (no native parser, prefixes or asciify yet), single-device
-strategies 0, 2 and 3, and the output file in the JAX package's format (sorted
-``Cind.pretty()`` lines).
+Thin: the Python ingest (no native parser, prefixes or asciify yet), the four
+strategies on a single device, and the output file in the JAX package's format
+(sorted ``Cind.pretty()`` lines).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -15,12 +16,12 @@ import numpy as np
 from ..data import CindTable
 from ..dictionary import Dictionary, intern_triples
 from ..io import ntriples, reader
-from ..models import allatonce, approximate, late_bb
+from ..models import allatonce, approximate, late_bb, small_to_large
 
-# Strategy ids follow the reference: 0 = all-at-once, 2 = approximate
-# all-at-once, 3 = late-BB.  Strategy 1 (small-to-large) is not ported.
-STRATEGIES = {0: allatonce.discover, 2: approximate.discover,
-              3: late_bb.discover}
+# Strategy ids follow the reference: 0 = all-at-once, 1 = small-to-large,
+# 2 = approximate all-at-once, 3 = late-BB.
+STRATEGIES = {0: allatonce.discover, 1: small_to_large.discover,
+              2: approximate.discover, 3: late_bb.discover}
 
 
 @dataclasses.dataclass
@@ -29,11 +30,12 @@ class Config:
 
     input_paths: list[str] = dataclasses.field(default_factory=list)
     min_support: int = 10
-    traversal_strategy: int = 0
+    traversal_strategy: int = 1
     projections: str = "spo"
     use_frequent_item_set: bool = False
     use_association_rules: bool = False
     clean_implied: bool = False
+    balanced_11: bool = False  # strategy 1: each unordered 1/1 pair once
     output_file: str | None = None
     collect_result: bool = False
     device: str | None = None  # None: the CUDA card
@@ -71,8 +73,8 @@ def write_output(path: str, table: CindTable, dictionary: Dictionary) -> None:
 def run(cfg: Config) -> RunResult:
     strategy = STRATEGIES.get(cfg.traversal_strategy)
     if strategy is None:
-        raise ValueError(f"traversal strategy {cfg.traversal_strategy} is not "
-                         f"yet ported (ported: {sorted(STRATEGIES)})")
+        raise ValueError(f"unknown traversal strategy {cfg.traversal_strategy} "
+                         f"(one of {sorted(STRATEGIES)})")
     timings = {}
 
     def phase(name, fn):
@@ -85,11 +87,18 @@ def run(cfg: Config) -> RunResult:
     ids, dictionary = phase(
         "intern", lambda: intern_triples(np.asarray(raw, dtype=object)))
     use_ars = cfg.use_association_rules and cfg.use_frequent_item_set
+    kwargs = {}
+    if cfg.balanced_11:
+        if cfg.traversal_strategy != 1:
+            print("note: --balanced-overlap-candidates only affects the "
+                  "small-to-large strategy (1)", file=sys.stderr)
+        else:
+            kwargs["balanced_11"] = True
     table = phase("discover", lambda: strategy(
         ids, cfg.min_support, projections=cfg.projections,
         use_frequent_condition_filter=cfg.use_frequent_item_set,
         use_association_rules=use_ars, clean_implied=cfg.clean_implied,
-        device=cfg.device))
+        device=cfg.device, **kwargs))
     if cfg.output_file:
         phase("write-output",
               lambda: write_output(cfg.output_file, table, dictionary))

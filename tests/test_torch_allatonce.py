@@ -110,26 +110,62 @@ def test_accepts_handed_over_triples_and_empty_input():
     assert len(empty) == 0
 
 
-def test_too_large_plan_names_the_missing_fallback(monkeypatch):
+CHUNK_KEYS = ("total_pairs", "n_lines", "n_line_rows", "n_frequent_rows",
+              "n_captures", "max_line", "pair_backend")
+
+
+@pytest.mark.parametrize("budget", [16, tallatonce.PAIR_CHUNK_BUDGET])
+@pytest.mark.parametrize("fc,ars,clean_implied", [
+    (True, False, False), (False, False, True), (True, True, False)])
+def test_chunked_backend_matches_jax_and_dense(fc, ars, clean_implied, budget):
+    """The chunk loop (many chunks at a budget of 16 pairs, one at the
+    default) against the JAX package's chunked backend and the port's own
+    dense sweep."""
+    make, min_support = WORKLOADS["triples"]
+    triples = make()
+    kw = dict(use_frequent_condition_filter=fc, use_association_rules=ars,
+              clean_implied=clean_implied)
+    want_stats, stats = {}, {}
+    want = rdfind_tpu.discover(triples, min_support, strategy=0,
+                               pair_backend="chunked", stats=want_stats, **kw)
+    got = rdfind_tpu_torch.discover(triples, min_support, strategy=0,
+                                    device="cpu", pair_backend="chunked",
+                                    pair_chunk_budget=budget, stats=stats,
+                                    **kw)
+    dense = rdfind_tpu_torch.discover(triples, min_support, strategy=0,
+                                      device="cpu", pair_backend="matmul",
+                                      **kw)
+    assert len(want) > 0
+    assert got.to_rows() == want.to_rows() == dense.to_rows()
+    assert tintegrity.digest_table(got) == jintegrity.digest_table(want)
+    for key in CHUNK_KEYS:
+        assert stats[key] == want_stats[key], key
+    assert stats["n_pair_chunks"] > (100 if budget == 16 else 0)
+
+
+def test_auto_falls_back_to_chunked_when_the_plan_is_too_large(monkeypatch):
+    triples = synth.generate_triples(300, seed=1)
+    want = rdfind_tpu.discover(triples, 2, strategy=0)
     monkeypatch.setattr(tcooc, "CPU_M_BUDGET_BYTES", 1024)
-    with pytest.raises(tallatonce.DensePlanTooLarge, match="chunked"):
-        rdfind_tpu_torch.discover(synth.generate_triples(300, seed=1), 2,
-                                  strategy=0, device="cpu")
+    stats = {}
+    got = rdfind_tpu_torch.discover(triples, 2, strategy=0, device="cpu",
+                                    stats=stats)
+    assert stats["pair_backend"] == "chunked"
+    assert len(got) > 0 and got.to_rows() == want.to_rows()
+    with pytest.raises(ValueError, match="device budget"):
+        rdfind_tpu_torch.discover(triples, 2, strategy=0, device="cpu",
+                                  pair_backend="matmul")
 
 
-@pytest.mark.parametrize("strategy", [1, 2, 3])
-def test_unported_strategies_raise(strategy):
-    """Strategy 1 is not ported; 2 and 3 are, but not their chunked
-    verification, which raises instead of running another route."""
-    kw, match = ({}, "not yet ported") if strategy == 1 else \
-        (dict(pair_backend="chunked"), "not ported yet")
-    with pytest.raises(ValueError, match=match):
+@pytest.mark.parametrize("strategy", [0, 1, 2, 3])
+def test_unknown_pair_backend_raises(strategy):
+    with pytest.raises(ValueError, match="unknown pair_backend"):
         rdfind_tpu_torch.discover(synth.generate_triples(100, seed=1), 2,
-                                  strategy=strategy, device="cpu", **kw)
+                                  strategy=strategy, device="cpu",
+                                  pair_backend="dense")
 
 
-def test_chunked_backend_is_not_ported():
-    with pytest.raises(ValueError, match="not ported"):
+def test_unknown_strategy_raises():
+    with pytest.raises(ValueError, match="unknown traversal strategy"):
         rdfind_tpu_torch.discover(synth.generate_triples(100, seed=1), 2,
-                                  strategy=0, device="cpu",
-                                  pair_backend="chunked")
+                                  strategy=4, device="cpu")

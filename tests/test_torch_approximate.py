@@ -130,17 +130,48 @@ def test_discover_with_no_frequent_capture_is_empty():
     assert "n_sketch_candidates" not in want_stats
 
 
-def test_chunked_backend_raises():
-    with pytest.raises(ValueError, match="queue 1 item 1"):
-        tapproximate.discover(_triples(31), 2, device="cpu",
-                              pair_backend="chunked")
-    with pytest.raises(ValueError, match="unknown pair_backend"):
-        tapproximate.discover(_triples(31), 2, device="cpu",
-                              pair_backend="dense")
+CHUNK_KEYS = ("n_sketch_candidates", "pairs_verify", "total_pairs",
+              "pair_backend", "pairs_verify_backend")
 
 
-def test_oversized_verification_raises(monkeypatch):
-    """Where the JAX package drops to its chunked host loop, the port raises."""
+def _small_triples(seed):
+    """Fewer triples for the chunked verification: with a 256-bit sketch the
+    plain K2 stays cheap, and the chunk loop still takes tens of chunks."""
+    return synth.generate_triples(400, seed=seed, n_predicates=8,
+                                  n_entities=80)
+
+
+@pytest.mark.parametrize("seed,kw", [
+    (31, dict(pair_chunk_budget=256)),
+    (34, dict(use_frequent_condition_filter=False)),
+])
+def test_chunked_backend_matches_jax(seed, kw):
+    triples = _small_triples(seed)
+    want_stats, got_stats = {}, {}
+    want = japproximate.discover(triples, 2, pair_backend="chunked",
+                                 sketch_bits=256, stats=want_stats, **kw)
+    got = tapproximate.discover(triples, 2, pair_backend="chunked",
+                                sketch_bits=256, stats=got_stats,
+                                device="cpu", **kw)
+    assert len(want) > 0
+    assert got.to_rows() == want.to_rows()
+    assert tintegrity.digest_table(got) == jintegrity.digest_table(want)
+    for key in CHUNK_KEYS:
+        assert got_stats[key] == want_stats[key], key
+    assert got_stats["pairs_verify_backend"] == "chunked"
+
+
+def test_oversized_verification_falls_back_to_chunked(monkeypatch):
+    """Past SINGLE_SHOT_C "auto" verifies on the chunked loop (as the JAX
+    package does) and "matmul" raises."""
+    want = japproximate.discover(_small_triples(31), 2, sketch_bits=256,
+                                 pair_backend="chunked")
     monkeypatch.setattr(tcooc, "SINGLE_SHOT_C", 64)
-    with pytest.raises(tallatonce.DensePlanTooLarge, match="queue 1 item 1"):
-        tapproximate.discover(_triples(31), 2, device="cpu", sketch_bits=256)
+    stats = {}
+    got = tapproximate.discover(_small_triples(31), 2, device="cpu",
+                                sketch_bits=256, stats=stats)
+    assert stats["pairs_verify_backend"] == "chunked"
+    assert len(got) > 0 and got.to_rows() == want.to_rows()
+    with pytest.raises(ValueError, match="matmul"):
+        tapproximate.discover(_small_triples(31), 2, device="cpu",
+                              sketch_bits=256, pair_backend="matmul")

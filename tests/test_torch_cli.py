@@ -76,9 +76,23 @@ def test_count_line_and_collect_result(nt_file, capsys):
     assert capsys.readouterr().out.count(" < ") > 0
 
 
+@pytest.mark.parametrize("flags", [
+    [], ["--use-fis", "--clean-implied"], ["--balanced-overlap-candidates"],
+    ["--traversal-strategy", "1", "--projection", "so"]])
+def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
+    """No strategy flag: small-to-large, as in the JAX package's CLI."""
+    common = [small_nt_file, "--support", "3", *flags]
+    out_j, out_t = tmp_path / "jax.txt", tmp_path / "torch.txt"
+    assert jcli.main(common + ["--output", str(out_j)]) == 0
+    assert tcli.main(common + ["--output", str(out_t), "--device", "cpu"]) == 0
+    want = out_j.read_bytes()
+    assert want.count(b"\n") > 0
+    assert out_t.read_bytes() == want
+
+
 @pytest.mark.parametrize("argv,needle", [
-    (["--traversal-strategy", "1"], "--traversal-strategy 1"),
-    ([], "--traversal-strategy 1"),
+    (["--explicit-threshold", "5"], "ROADMAP.md, queue 1"),
+    (["--sbf-bytes=3"], "--sbf-bytes"),
     (["--traversal-strategy", "0", "--dop", "2"], "--dop"),
     (["--traversal-strategy", "0", "--prefixes", "p.txt"], "--prefixes"),
     (["--traversal-strategy", "0", "--projection", "x"], "--projection"),

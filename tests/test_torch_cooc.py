@@ -190,3 +190,48 @@ def test_stage_state_rejects_non_binary_membership():
         state.stage_state_to_device({"m": np.full((2, 2), 2.0)}, "cpu")
     with pytest.raises(KeyError):
         state.stage_state_to_device({"lines": np.zeros(2)}, "cpu")
+
+
+@pytest.mark.parametrize("strip_bits", [None, 1 << 10])
+def test_extract_packed_matches_jax(monkeypatch, strip_bits):
+    """One relation through the port's batched decode, in one batch or (with
+    a small bound) in row strips with a pull every few tiles."""
+    rng = np.random.default_rng(2)
+    bits = rng.random((96, 250)) < 0.05
+    want_d, want_r = jcooc.extract_packed(jcooc.pack_bool(jnp.asarray(bits)),
+                                          90, 240)
+    if strip_bits:
+        monkeypatch.setattr(tcooc, "EXTRACT_DEVICE_ELEMS", strip_bits)
+        monkeypatch.setattr(tcooc, "PULL_BYTES_BUDGET", 64)
+    d, r = tcooc.extract_packed(tcooc.pack_bool(torch.as_tensor(bits)), 90,
+                                240)
+    assert want_d.size > 0
+    np.testing.assert_array_equal(d, want_d)
+    np.testing.assert_array_equal(r, want_r)
+
+
+def test_extract_packed_iter_keeps_tile_order():
+    rng = np.random.default_rng(3)
+    tiles = [(rng.random((r, c)) < 0.2, r - 1, c) for r, c in
+             ((8, 40), (30, 64), (5, 33), (1, 1))]
+    tiles.insert(2, (np.zeros((4, 64), bool), 4, 64))  # an empty tile
+    got = tcooc.extract_packed_iter(
+        [lambda b=b, rr=rr, rc=rc: (tcooc.pack_bool(torch.as_tensor(b)), rr, rc)
+         for b, rr, rc in tiles], 30 * 64)
+    for (b, rr, rc), (d, r) in zip(tiles, got):
+        want = np.nonzero(b[:rr, :rc])
+        np.testing.assert_array_equal(d, want[0])
+        np.testing.assert_array_equal(r, want[1])
+
+
+def test_union_line_counts_match_jax():
+    from rdfind_tpu.models import small_to_large as js2l
+
+    rng = np.random.default_rng(4)
+    m = (rng.random((256, 384)) < 0.1).astype(np.int8)  # lines x captures
+    mask = rng.random(384) < 0.4
+    want = np.asarray(js2l._union_line_counts(jnp.asarray(m),
+                                              jnp.asarray(mask)))
+    got = tcooc.union_line_counts(torch.as_tensor(m.T.copy()),
+                                  torch.as_tensor(mask), rows_per_step=100)
+    np.testing.assert_array_equal(got.numpy(), want)

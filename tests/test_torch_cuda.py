@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import rdfind_tpu_torch
+from rdfind_tpu_torch.models import allatonce
 from rdfind_tpu_torch.ops import cooc, kernels, sketch
 from rdfind_tpu_torch.utils import synth
 
@@ -242,6 +243,7 @@ def test_k2_kernel_matches_plain(cuda, d, r, bits, n_pad):
 
 
 def test_probes_match_plain(cuda):
+    kernels.reset_contains_check()
     kernels.reset_launches()
     x = torch.arange(5, dtype=torch.int32, device=cuda).reshape(1, 5)
     assert torch.equal(kernels.repeat_probe(x), kernels.repeat_probe_plain(x))
@@ -252,11 +254,14 @@ def test_probes_match_plain(cuda):
     kernels.check_contains_library(cuda)
     assert kernels.LAUNCHES["repeat_probe"] == 2
     assert kernels.LAUNCHES["pipeline_probe"] == 2
+    kernels.check_contains_library(cuda)  # passed once: not probed again
+    assert kernels.LAUNCHES["repeat_probe"] == 2
 
 
 @pytest.mark.parametrize("strategy", [2, 3])
 def test_approximate_strategies_on_cuda_equal_cpu(cuda, strategy):
     triples = synth.generate_triples(3000, seed=5)
+    kernels.reset_contains_check()
     kernels.reset_launches()
     stats = {}
     got = rdfind_tpu_torch.discover(triples, 3, strategy=strategy, device=cuda,
@@ -271,3 +276,75 @@ def test_approximate_strategies_on_cuda_equal_cpu(cuda, strategy):
     for key in ("n_sketch_candidates", "n_round1_candidates",
                 "n_round2_candidates"):
         assert stats.get(key) == cpu_stats.get(key), key
+
+
+S2L_KEYS = ("n_cinds_11", "n_proper_overlaps", "n_cinds_12", "n_cinds_21",
+            "n_inferred_21", "n_cinds_22", "pairs_11", "pairs_12", "pairs_21",
+            "pairs_22", "total_pairs", "pair_backend")
+
+
+@pytest.mark.parametrize("backend,fc", [("matmul", True), ("chunked", True),
+                                        ("chunked", False)])
+def test_small_to_large_on_cuda_equals_cpu(cuda, backend, fc):
+    triples = synth.generate_triples(3000, seed=5)
+    kw = dict(strategy=1, pair_backend=backend, pair_chunk_budget=1 << 14,
+              use_frequent_condition_filter=fc)
+    stats, cpu_stats = {}, {}
+    got = rdfind_tpu_torch.discover(triples, 3, device=cuda, stats=stats, **kw)
+    want = rdfind_tpu_torch.discover(triples, 3, device="cpu",
+                                     stats=cpu_stats, **kw)
+    assert len(want) > 0 and got.to_rows() == want.to_rows()
+    for key in S2L_KEYS:
+        assert stats.get(key) == cpu_stats.get(key), key
+    if backend == "chunked":
+        assert stats["n_pair_chunks"] == cpu_stats["n_pair_chunks"] > 1
+
+
+@pytest.mark.parametrize("strategy", [0, 2, 3])
+def test_chunked_backend_on_cuda_equals_dense(cuda, strategy):
+    triples = synth.generate_triples(3000, seed=5)
+    stats = {}
+    got = rdfind_tpu_torch.discover(triples, 3, strategy=strategy, device=cuda,
+                                    pair_backend="chunked",
+                                    pair_chunk_budget=1 << 14, stats=stats)
+    want = rdfind_tpu_torch.discover(triples, 3, strategy=strategy,
+                                     device=cuda, pair_backend="matmul")
+    assert stats["pair_backend"] == "chunked" and stats["n_pair_chunks"] > 1
+    assert len(want) > 0 and got.to_rows() == want.to_rows()
+
+
+def test_chunk_loop_syncs_only_at_its_pulls(cuda, monkeypatch):
+    """Each chunk's emission, sort, count and staged copy queue under PyTorch's
+    sync debug mode "error"; only the pull of a chunk (one event wait) runs
+    with it off.  The chunks equal the CPU loop's."""
+    triples = synth.generate_triples(3000, seed=5)
+    st = allatonce.prepare_join_lines(allatonce.triples_on(triples, "cpu"), 3,
+                                      "spo", True, False, None)
+    lv, lc = st["line_val_h"], st["line_cap_h"]
+    rng = np.random.default_rng(0)
+    dep_ok = rng.random(st["num_caps"]) < 0.5
+    pull = allatonce._pull_chunk
+    pulls = []
+
+    def pull_with_sync(staged):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            pulls.append(1)
+            return pull(staged)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    want = list(allatonce.iter_chunk_pairs(lv, lc, 1 << 12, "cpu",
+                                           dep_f_h=dep_ok[lc]))
+    it = allatonce.iter_chunk_pairs(lv, lc, 1 << 12, cuda, dep_f_h=dep_ok[lc])
+    monkeypatch.setattr(allatonce, "_pull_chunk", pull_with_sync)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(it)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert len(got) == len(want) == len(pulls) > 4
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)

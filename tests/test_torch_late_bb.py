@@ -8,7 +8,6 @@ import pytest
 import rdfind_tpu_torch
 from rdfind_tpu.models import late_bb as jlate_bb
 from rdfind_tpu.obs import integrity as jintegrity
-from rdfind_tpu_torch.models import allatonce as tallatonce
 from rdfind_tpu_torch.models import late_bb as tlate_bb
 from rdfind_tpu_torch.obs import integrity as tintegrity
 from rdfind_tpu_torch.ops import cooc as tcooc
@@ -67,10 +66,39 @@ def test_clean_late_bb_equals_clean_strategy0(seed):
     assert len(want) > 0 and got.to_rows() == want.to_rows()
 
 
-def test_chunked_backend_and_oversized_verification_raise(monkeypatch):
-    with pytest.raises(ValueError, match="queue 1 item 1"):
-        tlate_bb.discover(_triples(41), 2, device="cpu",
-                          pair_backend="chunked")
+def _small_triples(seed):
+    """Fewer triples for the chunked verification: with a 256-bit sketch the
+    plain K2 stays cheap, and the chunk loop still takes tens of chunks."""
+    return synth.generate_triples(400, seed=seed, n_predicates=8,
+                                  n_entities=80)
+
+
+@pytest.mark.parametrize("seed,kw", [
+    (41, dict(pair_chunk_budget=256)),
+    (44, dict(use_frequent_condition_filter=False)),
+])
+def test_chunked_backend_matches_jax(seed, kw):
+    triples = _small_triples(seed)
+    want_stats, got_stats = {}, {}
+    want = jlate_bb.discover(triples, 2, pair_backend="chunked",
+                             sketch_bits=256, stats=want_stats, **kw)
+    got = tlate_bb.discover(triples, 2, pair_backend="chunked",
+                            sketch_bits=256, stats=got_stats,
+                                device="cpu", **kw)
+    assert len(want) > 0 and want_stats["n_round2_candidates"] > 0
+    assert got.to_rows() == want.to_rows()
+    assert tintegrity.digest_table(got) == jintegrity.digest_table(want)
+    for key in ROUND_STATS:
+        assert got_stats[key] == want_stats[key], key
+    assert got_stats["pair_backend"] == "chunked"
+
+
+def test_oversized_verification_falls_back_to_chunked(monkeypatch):
+    want = jlate_bb.discover(_small_triples(41), 2, sketch_bits=256,
+                             pair_backend="chunked")
     monkeypatch.setattr(tcooc, "SINGLE_SHOT_C", 64)
-    with pytest.raises(tallatonce.DensePlanTooLarge, match="queue 1 item 1"):
-        tlate_bb.discover(_triples(41), 2, device="cpu", sketch_bits=256)
+    stats = {}
+    got = tlate_bb.discover(_small_triples(41), 2, device="cpu",
+                            sketch_bits=256, stats=stats)
+    assert stats["pair_backend"] == "chunked"
+    assert len(got) > 0 and got.to_rows() == want.to_rows()
