@@ -33,20 +33,38 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
 6. the CLI's default configuration: the headline without the frequent-condition
    filter (~20x the captures), through strategy 0 and through strategy 1, whose
    capture axis takes its chunked lattice walk; both must equal the filtered
-   goldens.  Strategy 1 with clean_implied must equal strategy 0 with it.  Then
-   the CLI itself (``programs/rdfind.py`` with only ``--support 10``) on an
-   N-Triples file written from the headline triples: its output file must
-   equal the strategy-1 golden's CINDs, line for line;
+   goldens.  Strategy 1 with clean_implied must equal strategy 0 with it;
 7. the chunked pair backend forced on the headline for strategies 0, 2 and 3:
    each must equal its golden, candidate counts included, with its chunk count;
-8. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+8. ``half_approx``: strategy 1's half-approximate 1/1 round
+   (``explicit_threshold`` 0 and 64, the default count-min sketch) on the
+   headline, on the real-size workload and on the unfiltered headline: the
+   CIND count, digest and lattice counts of strategy 1, and on the filtered
+   headline the five ``ha_*`` statistics of the JAX package; each with one
+   profiled run;
+9. ``ingest``: the compiler and zlib the native ingest needs, its build from
+   ``native/rdfind_native.cpp``, then the headline written as N-Triples,
+   gzipped N-Triples and tab-separated text, each read by the native engine
+   (threads as configured, and 1) and by the Python ingest: equal ids and
+   dictionaries, with seconds, MB/s and the engine's phase times;
+10. ``cli``: the CLI's default run on the N-Triples file (native ingest, its
+   read+parse / intern / discover split), one with ``--explicit-threshold 64
+   --counters 1`` and one with ``--prefixes`` on a prefix file written here;
+   each output file must equal the strategy-1 golden's CINDs decoded to the
+   same terms, line for line;
+11. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+   The kernel phase also times an empty launch (``launch_floor``), the
+   practical floor under the probes P1 and P2.
 
 Any mismatch raises, so the script exits non-zero without the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gzip
 import hashlib
+import io
 import json
 import os
 import re
@@ -60,8 +78,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import rdfind_tpu_torch  # noqa: E402
-from rdfind_tpu_torch.data import CindTable  # noqa: E402
-from rdfind_tpu_torch.dictionary import Dictionary  # noqa: E402
+from rdfind_tpu_torch.dictionary import Dictionary, intern_triples  # noqa: E402
+from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
 from rdfind_tpu_torch.obs import integrity  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
@@ -125,6 +143,20 @@ GOLDEN_S2L = {
                       n_cinds_22=0, total_pairs=79284596),
 }
 GOLDEN_S2L_CLEAN = dict(n_cinds=316739, digest="d45fdf70356a9b01")
+# The half-approximate 1/1 round of strategy 1, recorded the same way from
+#   rdfind_tpu.models.small_to_large.discover(t, 10, explicit_threshold=th,
+#                                             stats=st)   # ~7 min on one core
+# on the (filtered) headline with the default sketch (sbf_width 2^20, sbf_bits
+# 5) and pair_chunk_budget 2^22.  Its CINDs, digest and lattice counts are
+# strategy 1's; these statistics depend on the chunking as well.
+GOLDEN_HA = {
+    0: dict(ha_spilled=5023110, ha_round2_deps=2042, ha_explicit_pairs=0,
+            ha_round2_merged_pairs=831968, ha_round2_rows=5011517,
+            pairs_11=42536208),
+    64: dict(ha_spilled=4688835, ha_round2_deps=2042, ha_explicit_pairs=130688,
+             ha_round2_merged_pairs=831968, ha_round2_rows=5004455,
+             pairs_11=42536208),
+}
 # The kernels each main path must launch.  Strategy 1 launches none: its
 # lattice is torch ops and torch._int_mm, and the JAX package has no Pallas
 # kernel on that path either.  Nor does strategy 0's chunked backend
@@ -534,6 +566,19 @@ def run_probe_cases(device) -> dict:
     return rows
 
 
+def launch_floor(device) -> dict:
+    """The device time of one empty kernel launch (``torch.cuda._sleep(0)``),
+    back to back: the practical floor under any launch, beside which the
+    bytes bound of a kernel as small as P1 or P2 means nothing."""
+    reps = 500
+    ms = time_ms(lambda: torch.cuda._sleep(0), device, reps=reps,
+                 device_only=True)
+    row = dict(phase="launch_floor", kernel="torch.cuda._sleep(0)", reps=reps,
+               kernel_ms=ms)
+    emit(row)
+    return row
+
+
 def triples_sha1(triples) -> str:
     return hashlib.sha1(np.ascontiguousarray(triples, np.int32)
                         .tobytes()).hexdigest()[:12]
@@ -553,6 +598,9 @@ def golden_of(name, strategy, kw) -> dict:
         if kw:
             golden = {k: v for k, v in golden.items()
                       if k not in ("n_inferred_21", "total_pairs")}
+        if (name == "headline" and "explicit_threshold" in kw
+                and kw.get("use_frequent_condition_filter", True)):
+            golden = {**golden, **GOLDEN_HA[kw["explicit_threshold"]]}
         return golden
     return GOLDEN[name] if strategy == 0 else GOLDEN_APPROX[(name, strategy)]
 
@@ -614,6 +662,7 @@ def run_main_path(name, triples, support, device, strategy: int = 0,
                pair_backend=stats.get("pair_backend"),
                n_pair_chunks=stats.get("n_pair_chunks", 0),
                peak_mem_bytes=max(peaks), launches=launches,
+               ha={k: v for k, v in stats.items() if k.startswith("ha_")},
                kernels_on_path=list(path_kernels(strategy, kw)) or
                "none: this path launches no hand-written kernel",
                dense_plan=stats.get("dense_plan"))
@@ -670,44 +719,158 @@ def profile_main_path(name, triples, support, device, strategy: int,
     return row
 
 
-def write_nt(path, triples) -> Dictionary:
-    """The id triples as an N-Triples file of IRIs ``<e{id}>``, and the
-    dictionary that decodes the ids to those terms."""
-    ids = np.asarray(triples, np.int64)
-    terms = np.array([f"<e{i}>" for i in range(int(ids.max()) + 1)],
-                     dtype=object)
-    with open(path, "w") as f:
-        for s, p, o in ids:
-            f.write(f"{terms[s]} {terms[p]} {terms[o]} .\n")
-    return Dictionary(terms)
+def terms_of(triples) -> np.ndarray:
+    """The IRI ``<e{id}>`` of every id up to the largest in `triples`."""
+    return np.array([f"<e{i}>" for i in range(int(np.max(triples)) + 1)],
+                    dtype=object)
 
 
-def run_cli_default(triples, device) -> dict:
-    """The CLI with no flag but ``--support 10`` on the headline as N-Triples
-    (strategy 1 without the filter: the chunked walk), held line for line
-    against the filtered strategy-1 run's CINDs decoded to the same terms."""
+def write_inputs(triples) -> dict:
+    """The id triples as files of IRIs ``<e{id}>`` (N-Triples, gzipped
+    N-Triples, tab-separated) and a prefix file; returns their paths."""
     os.makedirs(SCRATCH, exist_ok=True)
-    nt, out = os.path.join(SCRATCH, "headline.nt"), \
-        os.path.join(SCRATCH, "cli_out.txt")
-    dictionary = write_nt(nt, triples)
-    want = rdfind_tpu_torch.discover(triples, 10, strategy=1, device=device)
-    check_run("headline, strategy 1 (for the CLI)", want, {},
-              {k: GOLDEN_S2L["headline"][k] for k in ("n_cinds", "digest")})
-    want_lines = sorted(c.pretty() for c in CindTable.decoded(want,
-                                                              dictionary))
-    torch.cuda.synchronize(device)
+    terms = terms_of(triples)
+    rows = terms[np.asarray(triples, np.int64)]
+    paths = {k: os.path.join(SCRATCH, f"headline.{k}")
+             for k in ("nt", "nt.gz", "tsv")}
+    nt = "".join(f"{s} {p} {o} .\n" for s, p, o in rows)
+    with open(paths["nt"], "w") as f:
+        f.write(nt)
+    with gzip.open(paths["nt.gz"], "wt", compresslevel=1) as f:
+        f.write(nt)
+    with open(paths["tsv"], "w") as f:
+        f.write("".join(f"{s}\t{p}\t{o}\n" for s, p, o in rows))
+    paths["prefixes"] = os.path.join(SCRATCH, "prefixes.ttl")
+    with open(paths["prefixes"], "w") as f:
+        f.write("@prefix a: <e1> .\n@prefix b: <e> .\n")
+    return paths
+
+
+def shortened(terms) -> np.ndarray:
+    """`terms` as the prefix file shortens them: ``<e1...>`` -> ``a:...``,
+    other ``<e...>`` -> ``b:...`` (the longest matching prefix wins)."""
+    return np.array([f"a:{t[3:-1]}" if t.startswith("<e1") else f"b:{t[2:-1]}"
+                     for t in terms], dtype=object)
+
+
+def python_ingest(path, tabs: bool):
+    """The port's Python ingest of one file: reader, parser, interning."""
+    rows = []
+    for _, line in reader.iter_lines([path]):
+        t = ntriples.parse_tab_line(line) if tabs else ntriples.parse_line(line)
+        if t is not None:
+            rows.append(t)
+    return intern_triples(np.asarray(rows, dtype=object))
+
+
+def run_ingest(triples, paths) -> list:
+    """The native ingest against the Python ingest on each file of the
+    headline: equal ids and dictionaries, and the ids decode to the
+    generator's terms.  Fails when the native library does not build."""
+    toolchain = native.toolchain_report()
+    print(f"g++: {toolchain['version']}; zlib.h found: {toolchain['zlib_h']};"
+          f" libz: {toolchain['libz']}", flush=True)
+    emit(dict(phase="ingest_toolchain", **toolchain))
+    built = native.build()
+    emit(dict(phase="ingest_build", **built))
+    if not native.available():
+        raise AssertionError(f"native ingest unavailable: "
+                             f"{native.unavailable_reason()}")
+    want_terms = terms_of(triples)[np.asarray(triples, np.int64)]
+    env_threads = os.environ.pop("RDFIND_INGEST_THREADS", None)
+    rows = []
+    try:
+        for kind in ("nt", "nt.gz", "tsv"):
+            path, tabs = paths[kind], kind == "tsv"
+            mb = os.path.getsize(path) / 1e6
+            t0 = time.perf_counter()
+            ids_py, dict_py = python_ingest(path, tabs)
+            py_s = time.perf_counter() - t0
+            if not np.array_equal(dict_py.values[ids_py], want_terms):
+                raise AssertionError(f"{kind}: the Python ingest does not "
+                                     f"decode to the generator's terms")
+            for threads in (None, 1):
+                stats = {}
+                t0 = time.perf_counter()
+                ids, dct = native.ingest_files([path], tabs=tabs,
+                                               threads=threads, stats=stats)
+                secs = time.perf_counter() - t0
+                if not (np.array_equal(ids, ids_py)
+                        and list(dct.values) == list(dict_py.values)):
+                    raise AssertionError(f"{kind}, threads {threads}: native "
+                                         f"ingest differs from the Python one")
+                row = dict(phase="ingest", file=kind, mb=mb,
+                           n_triples=int(ids.shape[0]),
+                           n_values=len(dct), threads=stats["n_threads"],
+                           read_parse_s=secs, mb_per_s=mb / secs,
+                           python_read_parse_intern_s=py_s,
+                           python_mb_per_s=mb / py_s, match=True,
+                           **{k: stats[k] for k in
+                              ("n_units", "read_ms", "decode_ms", "parse_ms",
+                               "intern_ms", "merge_ms", "remap_ms",
+                               "triples_per_sec")})
+                emit(row)
+                rows.append(row)
+    finally:
+        if env_threads is not None:
+            os.environ["RDFIND_INGEST_THREADS"] = env_threads
+    return rows
+
+
+def run_cli(argv, want_lines, ingest_path: str) -> dict:
+    """One CLI run with ``--counters 1``: its output file must equal
+    `want_lines`, its counters must name `ingest_path`; returns its row with
+    the phase split that the CLI reports."""
+    out = os.path.join(SCRATCH, "cli_out.txt")
+    err = io.StringIO()
     t0 = time.perf_counter()
-    rc = cli.main([nt, "--support", "10", "--output", out])
+    with contextlib.redirect_stderr(err):
+        rc = cli.main([*argv, "--output", out, "--counters", "1"])
     wall = time.perf_counter() - t0
+    report = err.getvalue().splitlines()
     with open(out) as f:
         got_lines = f.read().splitlines()
     if rc != 0 or got_lines != want_lines:
-        raise AssertionError(f"CLI default run: rc {rc}, {len(got_lines)} "
-                             f"lines, want {len(want_lines)} golden lines")
-    row = dict(phase="cli", argv=["headline.nt", "--support", "10"],
-               wall_s=wall, n_lines=len(got_lines), golden_match=True)
+        raise AssertionError(f"CLI {argv}: rc {rc}, {len(got_lines)} lines, "
+                             f"want {len(want_lines)} golden lines")
+    if f"ingest-path: {ingest_path}" not in report:
+        raise AssertionError(f"CLI {argv}: ingest path is not {ingest_path}: "
+                             f"{[ln for ln in report if 'ingest' in ln]}")
+    phases = {}
+    for ln in report:
+        m = re.match(r"phase (.+): ([0-9.]+) ms$", ln)
+        if m:
+            phases[m.group(1)] = float(m.group(2)) / 1e3
+    stats = {k: v for k, v in (ln.split(": ", 1) for ln in report
+                               if ln.startswith(("stat-ha_", "ingest-")))}
+    row = dict(phase="cli", argv=[os.path.basename(a) if os.sep in a else a
+                                  for a in argv],
+               wall_s=wall, phases_s=phases, n_lines=len(got_lines),
+               golden_match=True, ingest_path=ingest_path, counters=stats)
     emit(row)
     return row
+
+
+def run_cli_phase(triples, paths, device) -> list:
+    """The CLI with no flag but ``--support 10`` (strategy 1 without the
+    filter: the chunked walk; native ingest), with the half-approximate
+    round, and with the prefix file (Python ingest), each held line for line
+    against the filtered strategy-1 run's CINDs decoded to the same terms."""
+    want = rdfind_tpu_torch.discover(triples, 10, strategy=1, device=device)
+    check_run("headline, strategy 1 (for the CLI)", want, {},
+              {k: GOLDEN_S2L["headline"][k] for k in ("n_cinds", "digest")})
+    terms = terms_of(triples)
+    lines = sorted(c.pretty() for c in want.decoded(Dictionary(terms)))
+    short = sorted(c.pretty() for c in
+                   want.decoded(Dictionary(shortened(terms))))
+    nt = paths["nt"]
+    return [
+        run_cli([nt, "--support", "10"], lines, "native"),
+        run_cli([nt, "--support", "10", "--explicit-threshold", "64"], lines,
+                "native"),
+        run_cli([nt, "--support", "10", "--prefixes", paths["prefixes"]],
+                short, "python"),
+    ]
 
 
 def main() -> int:
@@ -745,6 +908,7 @@ def main() -> int:
     k2_rows = run_k2_cases(k2_cases(sk_preps, device), device)
     del sk_preps
     probe_rows = run_probe_cases(device)
+    floor = launch_floor(device)
 
     main_rows = {}
     for strategy in (0, 1, 2, 3):
@@ -783,7 +947,6 @@ def main() -> int:
                   phase="clean_implied", clean_implied=True)
     run_main_path("headline", headline, support, device, strategy=0, reps=1,
                   phase="clean_implied", clean_implied=True)
-    run_cli_default(headline, device)
 
     # The chunked pair backend, forced where "auto" would take the dense one.
     for strategy in (0, 2, 3):
@@ -792,6 +955,22 @@ def main() -> int:
                       pair_backend="chunked")
         profile_main_path("headline", headline, support, device, strategy,
                           pair_backend="chunked")
+
+    # Strategy 1's half-approximate 1/1 round: the output is strategy 1's.
+    runs = [(name, t, sup, {}) for name, (t, sup) in data.items()]
+    runs.append(("headline", headline, support, unfiltered))
+    for name, triples, sup, extra in runs:
+        for threshold in (0, 64):
+            run_main_path(name, triples, sup, device, strategy=1,
+                          phase="half_approx", explicit_threshold=threshold,
+                          **extra)
+        profile_main_path(name, triples, sup, device, 1,
+                          explicit_threshold=64, **extra)
+
+    # Native ingest against the Python ingest, then the CLI on those files.
+    paths = write_inputs(headline)
+    run_ingest(headline, paths)
+    run_cli_phase(headline, paths, device)
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.
@@ -828,7 +1007,8 @@ def main() -> int:
                          launches=launches2[name],
                          max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
+                         bound_by=r["bound_by"], library_ms=r["library_ms"],
+                         launch_floor_ms=floor["kernel_ms"]))
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

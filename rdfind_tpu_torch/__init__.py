@@ -7,9 +7,11 @@ card they raise.  On a CUDA tensor every kernel wrapper launches its hand-writte
 kernel (``csrc/``); on a CPU tensor it runs the kernel's plain PyTorch version.
 
 Ported so far, on one device: the four traversal strategies, 0 (AllAtOnce), 1
-(SmallToLarge, the CLI's default), 2 (ApproximateAllAtOnce) and 3 (LateBB), each
-with the dense and the chunked pair backend.  What remains is listed in
-ROADMAP.md.
+(SmallToLarge, the CLI's default, with its half-approximate 1/1 round), 2
+(ApproximateAllAtOnce) and 3 (LateBB), each with the dense and the chunked pair
+backend; the native fused ingest (``native/rdfind_native.cpp``, built at first
+use into ``build/``); the single-device CLI and the small programs of
+``programs/``.  What remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -69,6 +69,15 @@ class CindTable:
         """Set of 7-tuples, canonical for equality testing."""
         return {tuple(int(v) for v in row) for row in zip(*self.columns())}
 
+    def family_counts(self) -> dict:
+        """CIND counts per arity family {"11", "12", "21", "22"}."""
+        dep_u = cc.is_unary(np.asarray(self.dep_code))
+        ref_u = cc.is_unary(np.asarray(self.ref_code))
+        return {"11": int((dep_u & ref_u).sum()),
+                "12": int((dep_u & ~ref_u).sum()),
+                "21": int((~dep_u & ref_u).sum()),
+                "22": int((~dep_u & ~ref_u).sum())}
+
     def decoded(self, dictionary) -> list[Cind]:
         """Resolve interned ids back to strings via `dictionary`."""
 

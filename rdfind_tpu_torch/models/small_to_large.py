@@ -20,8 +20,10 @@ Mᵀ fits the device budget, the chunked one otherwise.  Output is the JAX
 package's strategy 1: raw output keeps only minimal 2/1 CINDs and 2/2 CINDs not
 implied by a 1/2 CIND; with clean_implied it equals AllAtOnce's minimal set.  With
 use_association_rules the AR filter runs on the 1/1 CINDs before they seed the
-higher levels, as in the reference.  The half-approximate 1/1 round
-(``explicit_threshold``) is not ported yet (ROADMAP.md, queue 1).
+higher levels, as in the reference.  ``explicit_threshold`` selects the
+half-approximate 1/1 round on the chunked backend (``_half_approx_cooc_11``):
+bounded exact counters per dependent, the tail in a count-min sketch, an exact
+second round for the inexact dependents; the output is the same.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .. import conditions as cc
 from .. import devices
 from ..data import NO_VALUE, CindTable
 from ..obs import integrity, metrics
-from ..ops import cooc, frequency, minimality
+from ..ops import cooc, frequency, minimality, sketch
 from . import allatonce
 
 
@@ -130,6 +132,163 @@ def _chunked_cooc(line_val_h, line_cap_h, dep_ok, ref_ok, budget, stats,
         ld, lr = uniq >> 32, uniq & 0xFFFFFFFF
         return (np.concatenate([ld, lr]), np.concatenate([lr, ld]),
                 np.concatenate([cnt, cnt]))
+
+
+# ---------------------------------------------------------------------------
+# The half-approximate 1/1 round (explicit_threshold != -1).
+# ---------------------------------------------------------------------------
+
+# 0x9E3779B97F4A7C15 (2^64 / golden ratio) as a signed int64.
+_GOLDEN64 = 0x9E3779B97F4A7C15 - (1 << 64)
+
+
+def _sbf_cap(sbf_bits: int) -> int:
+    """Saturation value of an `sbf_bits`-wide count-min counter, clamped to
+    the implementation maximum."""
+    return min((1 << max(1, sbf_bits)) - 1, sketch.MAX_COUNT_MIN_CAP)
+
+
+def _pair_hash32(key64) -> torch.Tensor:
+    """int64 pair keys -> well-mixed non-negative int32 count-min keys: bits
+    32-62 of key * 0x9E3779B97F4A7C15 modulo 2^64.  The JAX package multiplies
+    in uint64; a wrapped int64 multiply has the same bits, and the mask drops
+    the sign bits of the arithmetic shift."""
+    return (((key64 * _GOLDEN64) >> 32) & 0x7FFFFFFF).to(torch.int32)
+
+
+def _half_approx_cooc_11(line_val_h, line_cap_h, dep_ok, ref_ok, budget,
+                         stats, min_support, explicit_threshold, sbf_bits,
+                         sbf_width, device):
+    """Two-round half-approximate 1/1 overlap evaluation (the reference's
+    spectral-Bloom round, SmallToLargeTraversalStrategy.scala:178-260).
+
+    Round 1 keeps at most `explicit_threshold` exact (dep, ref) counters per
+    dependent, admitted in key order within each chunk, and spills the rest
+    into a count-min sketch of `sbf_width` counters saturating at
+    ``_sbf_cap(sbf_bits)``, held on `device`.  Each explicit pair is then exact
+    (no sketch contribution), infrequent (explicit + sketch bound below
+    min_support: dropped) or unknown.  Round 2 re-counts exactly every pair of
+    the dependents with a spilled or unknown pair, dropping chunk rows whose
+    upper bound is below min_support before the merge.
+
+    Returns host (dep, ref, cnt) in (dep, ref) order: exactly the pairs with
+    cnt >= min_support, with exact counts, which every consumer of the 1/1
+    level treats as the full exact result.  The ``ha_*`` statistics equal the
+    JAX package's because the chunks have its boundaries and rows.
+    """
+    cap = _sbf_cap(sbf_bits)
+    threshold = max(0, int(explicit_threshold))
+    num_caps = len(dep_ok)
+    exp_keys = np.zeros(0, np.int64)  # sorted (dep << 32) | ref
+    exp_cnt = np.zeros(0, np.int64)
+    exp_per_dep = np.zeros(num_caps, np.int64)
+    spilled = np.zeros(num_caps, bool)
+    cm_sum = torch.zeros(sbf_width, dtype=torch.int64, device=device)
+    n_spilled = 0
+
+    def match_explicit(key):
+        """(hit mask, clamped positions) of `key` in the explicit store."""
+        if len(exp_keys) == 0:
+            return np.zeros(len(key), bool), np.zeros(len(key), np.int64)
+        pos = np.minimum(np.searchsorted(exp_keys, key), len(exp_keys) - 1)
+        return exp_keys[pos] == key, pos
+
+    def chunks(dep_flags):
+        return _iter_chunk_pairs(line_val_h, line_cap_h, dep_flags, ref_ok,
+                                 budget, stats, "pairs_11", device)
+
+    with record_function("rdfind.half_approx_round1"):
+        # A chunk's keys are distinct and ascending (dep-major).
+        for d, r, c in chunks(dep_ok):
+            key = (d << 32) | r
+            hit, pos_c = match_explicit(key)
+            exp_cnt[pos_c[hit]] += c[hit]  # explicit counts sum exactly
+            new = ~hit
+            if not new.any():
+                continue
+            new_d, new_key, new_c = d[new], key[new], c[new]
+            first = np.empty(len(new_d), bool)
+            first[0] = True
+            first[1:] = new_d[1:] != new_d[:-1]
+            run_start = np.flatnonzero(first)
+            run_len = np.diff(np.append(run_start, len(new_d)))
+            rank = np.arange(len(new_d)) - np.repeat(run_start, run_len)
+            left = np.maximum(threshold - exp_per_dep[new_d[run_start]], 0)
+            admit = rank < np.repeat(left, run_len)
+            if admit.any():
+                a_key = new_key[admit]
+                at = np.searchsorted(exp_keys, a_key)
+                exp_keys = np.insert(exp_keys, at, a_key)
+                exp_cnt = np.insert(exp_cnt, at, new_c[admit])
+                deps, n_new = np.unique(new_d[admit], return_counts=True)
+                exp_per_dep[deps] += n_new
+            spill = ~admit
+            if spill.any():
+                n_spilled += int(spill.sum())
+                spilled[new_d[spill]] = True
+                sketch.count_min_scatter(
+                    cm_sum, _pair_hash32(_up(new_key[spill], device)),
+                    _up(np.minimum(new_c[spill], cap), device),
+                    num_hashes=sketch.DEFAULT_HASHES)
+
+    if len(exp_keys) == 0 and not spilled.any():
+        z = np.zeros(0, np.int64)
+        return z, z, z
+    cm_table = cm_sum.clamp_(max=cap).to(torch.int32)
+
+    def cm_query(key64):
+        if key64.size == 0:
+            return np.zeros(0, np.int64)
+        q = sketch.count_min_query(cm_table, _pair_hash32(_up(key64, device)),
+                                   bits=sbf_width,
+                                   num_hashes=sketch.DEFAULT_HASHES)
+        return q.cpu().numpy().astype(np.int64)
+
+    # Classify the explicit pairs (EvaluateHalfApproximateOverlapSets).
+    approx = cm_query(exp_keys)
+    exp_dep = exp_keys >> 32
+    exact_pair = approx == 0
+    frequent_exact = exact_pair & (exp_cnt >= min_support)
+    infrequent = exp_cnt + approx < min_support
+    unknown = ~exact_pair & ~infrequent
+
+    # Round 2: exact re-evaluation of the inexact dependents only.
+    r2 = spilled.copy()
+    r2[exp_dep[unknown]] = True
+    n_r2_rows = 0
+    d2 = r2_ = c2 = np.zeros(0, np.int64)
+    if r2.any():
+        parts = []
+        with record_function("rdfind.half_approx_round2"):
+            for d, r, c in chunks(r2 & dep_ok):
+                key = (d << 32) | r
+                # Explicit part + sketch part bound the total: below
+                # min_support the pair is dropped before the merge.
+                hit, pos_c = match_explicit(key)
+                e_part = (np.where(hit, exp_cnt[pos_c], 0) if len(exp_cnt)
+                          else np.zeros(len(key), np.int64))
+                keep = e_part + cm_query(key) >= min_support
+                n_r2_rows += int(keep.sum())
+                if keep.any():
+                    parts.append((d[keep], r[keep], c[keep]))
+        with record_function("rdfind.merge"):
+            d2, r2_, c2 = _merge_pair_parts(parts, device)
+        k2 = c2 >= min_support
+        d2, r2_, c2 = d2[k2], r2_[k2], c2[k2]
+
+    # Round 2 recounted every surviving pair of its dependents, so round 1
+    # keeps only the exact frequent pairs of the other dependents.
+    keep1 = frequent_exact & ~r2[exp_dep]
+    metrics.set_many(stats, ha_spilled=n_spilled,
+                     ha_round2_deps=int(r2.sum()),
+                     ha_explicit_pairs=len(exp_keys),
+                     ha_round2_merged_pairs=int(d2.size),
+                     ha_round2_rows=n_r2_rows)
+    d_out = np.concatenate([exp_dep[keep1], d2])
+    r_out = np.concatenate([exp_keys[keep1] & 0xFFFFFFFF, r2_])
+    c_out = np.concatenate([exp_cnt[keep1], c2])
+    order = np.argsort((d_out << 32) | r_out, kind="stable")
+    return d_out[order], r_out[order], c_out[order]
 
 
 # ---------------------------------------------------------------------------
@@ -748,6 +907,8 @@ def discover(triples, min_support: int, projections: str = "spo",
              pair_chunk_budget: int = allatonce.PAIR_CHUNK_BUDGET,
              pair_backend: str = "auto",
              explicit_threshold: int = -1,
+             sbf_bits: int = -1,
+             sbf_width: int = 1 << 20,
              balanced_11: bool = False,
              stats: dict | None = None,
              device=None) -> CindTable:
@@ -759,21 +920,29 @@ def discover(triples, min_support: int, projections: str = "spo",
     apply, "chunked" runs the per-level chunk loop, "auto" the first when it
     applies.  balanced_11 (--balanced-overlap-candidates) emits each unordered
     1/1 pair once and implies the chunked backend; the output is the same.
-    ``explicit_threshold`` other than -1 (the half-approximate 1/1 round)
-    raises NotImplementedError: it is not ported yet.
+
+    ``explicit_threshold`` other than -1 selects the half-approximate 1/1 round
+    (``_half_approx_cooc_11``) and implies the chunked backend: at most that
+    many exact counters per dependent in round 1, the tail in a count-min
+    sketch of ``sbf_width`` counters of ``sbf_bits`` bits (-1: enough bits to
+    hold min_support; ValueError when the counters saturate below it), then an
+    exact round 2 for the inexact dependents.  The output is the same;
+    balanced_11 is then ignored, as in the JAX package.
     """
     allatonce.check_pair_backend(pair_backend)
-    if explicit_threshold != -1:
-        raise NotImplementedError(
-            "the half-approximate 1/1 round (explicit_threshold) is not "
-            "ported to the PyTorch/CUDA package yet (ROADMAP.md, queue 1)")
-    if balanced_11:
+    min_support = max(int(min_support), 1)
+    if explicit_threshold != -1 or balanced_11:
         pair_backend = "chunked"
+    if sbf_bits == -1:
+        # The reference's default: enough bits to encode min_support.
+        sbf_bits = min_support.bit_length() + 1
+    if explicit_threshold != -1 and _sbf_cap(sbf_bits) < min_support:
+        raise ValueError(
+            f"sbf_bits={sbf_bits} saturates below min_support {min_support}")
     dev = devices.resolve(device)
     triples = allatonce.triples_on(triples, dev)
     if triples.shape[0] == 0 or not any(ch in projections for ch in "spo"):
         return CindTable.empty()
-    min_support = max(int(min_support), 1)
     use_ars = use_association_rules and use_frequent_condition_filter
 
     dense = None
@@ -814,7 +983,13 @@ def discover(triples, min_support: int, projections: str = "spo",
                              balanced=balanced)
 
     cooc_fn_11 = None
-    if balanced_11:
+    if explicit_threshold != -1:
+        def cooc_fn_11(dep_ok, ref_ok, stat_key):
+            return _half_approx_cooc_11(
+                line_val_h, line_cap_h, dep_ok, ref_ok, pair_chunk_budget,
+                stats, min_support, explicit_threshold, sbf_bits, sbf_width,
+                dev)
+    elif balanced_11:
         def cooc_fn_11(dep_ok, ref_ok, stat_key):
             return cooc_fn(dep_ok, ref_ok, stat_key, balanced=True)
 

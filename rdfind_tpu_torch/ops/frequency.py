@@ -100,6 +100,29 @@ def emit_rule_rows(triples, min_support: int, unary_counts, binary_counts):
     return out_cols
 
 
+def count_frequent_conditions(triples, min_support: int,
+                              include_binary: bool):
+    """Distinct frequent unary (and optionally binary) condition counts of an
+    (N, 3) int32 triple tensor: the --find-only-fcs report.  Returns
+    (n_unary, n_binary), n_binary None when not requested."""
+    if triples.shape[0] == 0:
+        return 0, (0 if include_binary else None)
+    ms = max(int(min_support), 1)
+    valid = torch.ones(triples.shape[0], dtype=torch.bool,
+                       device=triples.device)
+
+    def count(field_groups):
+        total = 0
+        for fields in field_groups:
+            cols = [triples[:, f] for f in fields]
+            ok = segments.masked_row_counts(cols, valid) >= ms
+            total += segments.masked_unique(cols, ok)[2]
+        return total
+
+    n_unary = count(((0,), (1,), (2,)))
+    return n_unary, (count(_FIELD_PAIRS) if include_binary else None)
+
+
 def mine_association_rules(triples, min_support: int):
     """(N, 3) int32 triple tensor -> numpy rule table (ant_bit, cons_bit, ant_val,
     cons_val, support): every directed rule (a=va) -> (b=vb) with

@@ -6,7 +6,9 @@
     containing the dependent: a conservative superset of the exact refset;
   * candidate generation        -> "are all hash bits of capture r set in
     sketch[d]?" for every (d, r) at once: kernel K2 (``kernels.
-    packed_contains_matrix``) on packed words.
+    packed_contains_matrix``) on packed words;
+  * the spectral filter         -> a count-min sketch (saturating counters,
+    min-of-k query): plain tensor operations, as in the JAX package.
 
 Rows are packed 32 bits per word (``bits // 32`` words), little bit order, the
 uint32 patterns held in int32 tensors (``cooc.pack_bool``'s layout).  The AND of
@@ -166,3 +168,75 @@ def contains_matrix(sketch_tile, ref_ids, ref_valid, *, bits: int,
                                          ref_packed.contiguous(),
                                          popc.contiguous())
     return (out[:d, :r] == 1) & ref_valid[None, :]
+
+
+# ---------------------------------------------------------------------------
+# Spectral filter analog: count-min sketch (saturating counts, min-of-k query).
+# ---------------------------------------------------------------------------
+
+MAX_COUNT_MIN_CAP = (1 << 16) - 1
+
+
+def count_min_scatter(table, keys, counts, *, num_hashes: int) -> torch.Tensor:
+    """Add each key's count to its ``num_hashes`` counters of the int64
+    `table` in place, with no clamp; returns `table`.
+
+    Counts are summed exactly in int64 (no realistic input reaches 2^63), so a
+    caller that clips each row's count to ``cap`` and clamps the table once at
+    the end gets the JAX package's counters bit for bit: by the saturation
+    lemma min(sum_i min(s_i, cap), cap) == min(sum_i s_i, cap), which is what
+    its clamp after every chunk of 2^14 rows computes.
+    """
+    pos = bit_positions(keys, bits=table.shape[0], num_hashes=num_hashes)
+    c = counts.to(torch.int64)
+    table.index_add_(0, pos.reshape(-1).to(torch.int64),
+                     c[:, None].expand(-1, num_hashes).reshape(-1))
+    return table
+
+
+def count_min_add(keys, counts, valid, *, bits: int, num_hashes: int,
+                  cap: int = MAX_COUNT_MIN_CAP) -> torch.Tensor:
+    """A count-min sketch row: (bits,) int32 counters saturating at `cap`.
+
+    Each counter ends at exactly min(true_sum, cap), every row's count clipped
+    to [0, cap] first and rows with ``valid`` False counting 0 (the JAX
+    package's contract).  Summed in int64 and clamped once
+    (``count_min_scatter``).
+    """
+    if not 0 < cap <= MAX_COUNT_MIN_CAP:
+        raise ValueError(f"cap must be in (0, {MAX_COUNT_MIN_CAP}]")
+    c = torch.where(valid, counts.to(torch.int64), 0).clamp(0, cap)
+    table = torch.zeros(bits, dtype=torch.int64, device=keys.device)
+    count_min_scatter(table, keys, c, num_hashes=num_hashes)
+    return table.clamp_(max=cap).to(torch.int32)
+
+
+def count_min_partial(keys, counts, valid, *, bits: int, num_hashes: int,
+                      cap: int = MAX_COUNT_MIN_CAP, table=None) -> torch.Tensor:
+    """One shard's partial count-min table, folded into `table` when given.
+
+    Partial tables built with the same (bits, num_hashes, cap) are summable:
+    the saturating fold min(table + part, cap) of partials equals one
+    ``count_min_add`` over the concatenated rows (the saturation lemma above).
+    """
+    part = count_min_add(keys, counts, valid, bits=bits,
+                         num_hashes=num_hashes, cap=cap)
+    if table is None:
+        return part
+    return torch.minimum(table.to(torch.int32) + part,
+                         torch.tensor(cap, dtype=torch.int32,
+                                      device=part.device))
+
+
+def count_min_query(table, keys, *, bits: int, num_hashes: int) -> torch.Tensor:
+    """Upper bound on each key's count: the min over its k counters."""
+    pos = bit_positions(keys, bits=bits, num_hashes=num_hashes)
+    return table[pos.to(torch.int64)].min(dim=1).values
+
+
+def merge_count_min(tables, cap: int = MAX_COUNT_MIN_CAP) -> torch.Tensor:
+    """Sum of count-min tables, saturating: the exact int64 sum capped once."""
+    acc = torch.zeros_like(torch.as_tensor(tables[0]), dtype=torch.int64)
+    for t in tables:
+        acc += torch.as_tensor(t).to(device=acc.device, dtype=torch.int64)
+    return acc.clamp_(max=cap).to(torch.int32)

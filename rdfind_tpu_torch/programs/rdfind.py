@@ -1,8 +1,11 @@
 """The RDFind CLI of the port: discover CINDs in RDF datasets on an NVIDIA GPU.
 
-The argument surface is the JAX package's CLI, restricted to what the port runs:
-the four traversal strategies on one device, small-to-large (1) by default.  Any
-other flag is rejected with a message naming it; none is silently ignored.
+The argument surface is the JAX package's CLI on one device: the same flags, names,
+defaults and messages, small-to-large (1) the default strategy, native fused
+ingest the default read path.  Flags whose behaviour is built in are accepted for
+compatibility and noted when set.  The flags of the sharded pipeline and of the
+runtime planes (checkpoints, tracing, delta, collector) are rejected with a
+message naming them; none is silently ignored.
 
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
         --output cinds.txt [--traversal-strategy 0|1|2|3] [--device cpu]
@@ -14,18 +17,52 @@ import argparse
 import sys
 
 STRATEGIES = (0, 1, 2, 3)
+_MESH = "the sharded multi-device pipeline (ROADMAP.md, queue 1)"
+_PLANES = "the runtime planes (ROADMAP.md, queue 1)"
 # Flags of the JAX package's CLI whose machinery the port does not have yet,
 # rejected with a pointer to the work queue.
-UNPORTED = {"--explicit-threshold": "the half-approximate 1/1 round",
-            "--sbf-bytes": "the half-approximate 1/1 round"}
+UNPORTED = {
+    "--dop": _MESH, "--coordinator": _MESH, "--num-hosts": _MESH,
+    "--host-index": _MESH, "--sharded-ingest": _MESH, "--interning": _MESH,
+    "--rebalance-strategy": _MESH, "--rebalance-max-load": _MESH,
+    "--rebalance-threshold": _MESH, "--no-combinable-join": _MESH,
+    "--delta": _PLANES, "--delta-state": _PLANES, "--deletes": _PLANES,
+    "--collector": _PLANES, "--profile-dir": _PLANES, "--trace": _PLANES,
+    "--metrics-file": _PLANES, "--console-port": _PLANES,
+    "--checkpoint-dir": _PLANES, "--retry-on-preempt": _PLANES,
+}
+# Accepted for compatibility: behaviour built in or subsumed, noted when set.
+_NO_EFFECT = (
+    ("no_bulk_merge", "merging is always windowed segment-sum here"),
+    ("frequent_condition_strategy",
+     "frequency uses exact segment counts; both reference strategies produce "
+     "identical verdicts"),
+    ("rebalance_split",
+     "split lines always fan out to every device in the mesh"),
+    ("hash_bytes", "hash dictionary subsumed by exact interning"),
+    ("apply_hash", "hash dictionary subsumed by exact interning"),
+    ("hash_dictionary", "hash dictionary subsumed by exact interning"),
+    ("hash_function", "hash dictionary subsumed by exact interning"),
+    ("find_frequent_captures", "exact capture-support pruning is always on"),
+    ("rebalance_join",
+     "the skew engine is always on for sharded runs; tune it with "
+     "--rebalance-threshold/--rebalance-max-load"),
+    ("only_read_compat", "use --only-read"),
+    ("any_binary_captures",
+     "binary condition frequencies are computed exactly in the same pass as "
+     "unary ones; there is no pre-pass to skip"))
+_NO_EFFECT_DEFAULTS = {"rebalance_split": 1, "frequent_condition_strategy": 0,
+                       "hash_bytes": -1, "hash_function": "MD5"}
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rdfind-torch",
         description="Discover Conditional Inclusion Dependencies in RDF datasets "
-                    "(PyTorch/CUDA port; the four strategies on one device).")
+                    "(PyTorch/CUDA port; one device).")
     p.add_argument("inputs", nargs="+", help="input .nt/.nq[.gz] files or globs")
+    p.add_argument("--prefixes", nargs="*", default=[],
+                   help="nt-prefix files for URL shortening")
     p.add_argument("--support", type=int, default=10,
                    help="minimum support for CINDs (default 10)")
     p.add_argument("--traversal-strategy", type=int, default=1,
@@ -40,13 +77,59 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mine + use association rules (needs --use-fis)")
     p.add_argument("--clean-implied", action="store_true",
                    help="remove implied CINDs (minimality cleanup)")
+    p.add_argument("--distinct-triples", action="store_true")
+    p.add_argument("--asciify-triples", action="store_true")
+    p.add_argument("--tabs", action="store_true", help="tab-separated input")
+    p.add_argument("--only-read", action="store_true")
+    p.add_argument("--do-only-join", action="store_true", dest="only_join")
+    p.add_argument("--output", default=None, help="CIND output file")
+    p.add_argument("--ar-output", default=None,
+                   help="association-rule output file")
+    p.add_argument("--collect-result", action="store_true",
+                   help="print CINDs to stdout")
+    p.add_argument("--debug-level", type=int, default=0,
+                   help="1: phase timings; 2: + sanity checks (trivial-CIND "
+                        "count); 3: + print every CIND")
+    p.add_argument("--print-plan", action="store_true",
+                   help="dump the logical plan as JSON before executing")
+    p.add_argument("--counters", type=int, default=0, dest="counter_level")
+    for flag in ("--find-frequent-captures", "--no-bulk-merge",
+                 "--rebalance-join", "--apply-hash",
+                 "--hash-dictionary", "--only-read-compat",
+                 "--any-binary-captures"):
+        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--balanced-overlap-candidates", action="store_true",
                    dest="balanced_11",
                    help="halve the 1/1 overlap emission via pair ownership "
                         "(strategy 1; runs the chunked backend)")
-    p.add_argument("--output", default=None, help="CIND output file")
-    p.add_argument("--collect-result", action="store_true",
-                   help="print CINDs to stdout")
+    p.add_argument("--merge-window-size", type=int, default=-1,
+                   help="pair-merge window: max pairs materialized per chunk "
+                        "in the chunked backend (-1 = auto)")
+    p.add_argument("--create-join-histogram", action="store_true",
+                   help="print a join-line size histogram "
+                        "('Join size N encountered Mx')")
+    p.add_argument("--find-only-fcs", type=int, default=0,
+                   help="1: stop after frequent-condition mining, reporting "
+                        "unary counts; 2: also mine binary (double) "
+                        "conditions and association rules")
+    for flag, dv in (("--rebalance-split", 1), ("--hash-bytes", -1),
+                     ("--frequent-condition-strategy", 0)):
+        p.add_argument(flag, type=int, default=dv, help=argparse.SUPPRESS)
+    p.add_argument("--explicit-threshold", type=int, default=-1,
+                   help="half-approximate 1/1 round: max exact per-dependent "
+                        "counters (strategy 1, chunked backend; -1 = exact "
+                        "overlaps)")
+    p.add_argument("--sbf-bytes", type=int, default=-1, dest="sbf_bits",
+                   help="bits per spectral (count-min) counter for the "
+                        "half-approximate round (-1 = sized to support)")
+    p.add_argument("--hash-function", default="MD5", help=argparse.SUPPRESS)
+    p.add_argument("--encoding", default="utf-8",
+                   help="input charset; 'auto' sniffs a BOM per file "
+                        "(default utf-8)")
+    p.add_argument("--file-filter", default=None,
+                   help="regex on input-file basenames")
+    p.add_argument("--no-native-ingest", action="store_true",
+                   help="force the pure-Python ingest path")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to run (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
@@ -59,32 +142,51 @@ def main(argv=None) -> int:
     for flag, what in UNPORTED.items():
         if any(u == flag or u.startswith(flag + "=") for u in unknown):
             parser.error(f"{flag} ({what}) is not ported to the PyTorch/CUDA "
-                         f"package yet (ROADMAP.md, queue 1)")
+                         f"package yet")
     if unknown:
         parser.error(f"not ported to the PyTorch/CUDA package yet: "
                      f"{' '.join(unknown)} (see ROADMAP.md)")
     if not args.projection or not set(args.projection) <= set("spo"):
         parser.error(f"--projection {args.projection!r} must be a non-empty "
                      f"subset of 'spo'")
-    if args.use_ars and not args.use_fis:
-        print("note: --use-ars has no effect without --use-fis "
-              "(association rules are mined from the frequent-item sets)",
-              file=sys.stderr)
     from ..runtime import driver
 
     cfg = driver.Config(
         input_paths=args.inputs,
+        prefix_paths=args.prefixes,
         min_support=args.support,
         traversal_strategy=args.traversal_strategy,
         projections=args.projection,
         use_frequent_item_set=args.use_fis,
         use_association_rules=args.use_ars,
         clean_implied=args.clean_implied,
-        balanced_11=args.balanced_11,
+        distinct_triples=args.distinct_triples,
+        asciify_triples=args.asciify_triples,
+        tabs=args.tabs,
+        only_read=args.only_read,
+        only_join=args.only_join,
         output_file=args.output,
+        ar_output_file=args.ar_output,
         collect_result=args.collect_result,
+        debug_level=args.debug_level,
+        counter_level=args.counter_level,
+        native_ingest=not args.no_native_ingest,
+        explicit_threshold=args.explicit_threshold,
+        sbf_bits=args.sbf_bits,
+        balanced_11=args.balanced_11,
+        print_plan=args.print_plan,
+        encoding=args.encoding,
+        file_filter=args.file_filter,
+        merge_window_size=args.merge_window_size,
+        find_only_fcs=args.find_only_fcs,
+        create_join_histogram=args.create_join_histogram,
         device=args.device,
     )
+    for name, why in _NO_EFFECT:
+        v = getattr(args, name)
+        if v not in (_NO_EFFECT_DEFAULTS.get(name, False), None):
+            print(f"note: --{name.replace('_', '-')} has no effect ({why})",
+                  file=sys.stderr)
     result = driver.run(cfg)
     if not (cfg.output_file or cfg.collect_result):
         print(f"Detected {len(result.table)} CINDs.")

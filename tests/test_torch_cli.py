@@ -1,8 +1,13 @@
 """The port's CLI against the JAX package's: byte-identical output files for the
-same input and flags, and every flag or strategy the port does not run rejected
-by name."""
+same input and flags, the same association-rule files, standard output (plan JSON,
+histogram lines, collected CINDs) and counter lines, and every flag of the
+sharded pipeline or the runtime planes rejected by name."""
+
+import gzip
+import json
 
 import jax
+import numpy as np
 import pytest
 
 from rdfind_tpu.programs import rdfind as jcli
@@ -91,10 +96,26 @@ def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--explicit-threshold", "5"], "ROADMAP.md, queue 1"),
-    (["--sbf-bytes=3"], "--sbf-bytes"),
     (["--traversal-strategy", "0", "--dop", "2"], "--dop"),
-    (["--traversal-strategy", "0", "--prefixes", "p.txt"], "--prefixes"),
+    (["--coordinator", "127.0.0.1:1"], "--coordinator"),
+    (["--num-hosts", "2"], "--num-hosts"),
+    (["--host-index", "1"], "--host-index"),
+    (["--sharded-ingest"], "--sharded-ingest"),
+    (["--interning", "replicated"], "--interning"),
+    (["--rebalance-strategy", "2"], "--rebalance-strategy"),
+    (["--rebalance-max-load=5"], "--rebalance-max-load"),
+    (["--rebalance-threshold", "2"], "--rebalance-threshold"),
+    (["--no-combinable-join"], "--no-combinable-join"),
+    (["--delta", "bundle"], "--delta"),
+    (["--delta-state", "bundle"], "--delta-state"),
+    (["--deletes", "d.nt"], "--deletes"),
+    (["--collector", "127.0.0.1:1"], "--collector"),
+    (["--profile-dir", "prof"], "--profile-dir"),
+    (["--trace", "trace"], "--trace"),
+    (["--metrics-file", "m.prom"], "--metrics-file"),
+    (["--console-port", "0"], "--console-port"),
+    (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
+    (["--retry-on-preempt", "2"], "--retry-on-preempt"),
     (["--traversal-strategy", "0", "--projection", "x"], "--projection"),
 ])
 def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
@@ -102,3 +123,187 @@ def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
         tcli.main([nt_file, *argv, "--device", "cpu"])
     assert exc.value.code == 2
     assert needle in capsys.readouterr().err
+
+
+# Counter and debug lines that differ between two runs of one package (times,
+# rates, memory) or between the packages' dense-plan descriptions, and the
+# port's own lines: the ingest path taken, its integrity stages and chunk count.
+VARIES = {"peak-rss-mb", "ingest-bytes-per-sec", "ingest-triples-per-sec",
+          "ingest-queue-stalls",
+          "stat-ingest", "stat-cooc_dtype", "stat-dense_plan",
+          "stat-kernel_resolution", "stat-plane_bits", "stat-fuse_verdict",
+          "ingest", "dense plan",
+          "cooc dtype", "phase", "total", "csv"}
+PORT_ONLY = {"ingest-path", "stat-integrity_stages", "stat-n_pair_chunks",
+             "stat-n_blocks_skipped"}
+
+
+def _keyed(err):
+    """stderr as {key: line}, keyed by the text before the first colon."""
+    out = {}
+    for line in err.splitlines():
+        key = line.split(":", 1)[0]
+        key = key.split(" ", 1)[0] if key.startswith("phase ") else key
+        out.setdefault(key, []).append(line)
+    return out
+
+
+def run_both(args, capsys, tmp_path):
+    """Both CLIs on the same argv (the port's output files renamed); asserts
+    equal stdout, output files, AR files and stderr lines (but VARIES) and
+    returns the port's stderr lines by key."""
+    def files(tag):
+        out = []
+        for a in args:
+            out.append(a.replace("@", str(tmp_path / tag)))
+        return out
+
+    assert jcli.main(files("jax")) == 0
+    j = capsys.readouterr()
+    assert tcli.main(files("torch") + ["--device", "cpu"]) == 0
+    t = capsys.readouterr()
+    assert t.out.replace(str(tmp_path / "torch"), str(tmp_path / "jax")) \
+        == j.out
+    for a in args:
+        if "@" in a:
+            got = (tmp_path / ("torch" + a.split("@", 1)[1]))
+            want = (tmp_path / ("jax" + a.split("@", 1)[1]))
+            assert got.exists() == want.exists(), a
+            if want.exists():
+                assert got.read_bytes() == want.read_bytes(), a
+    jk, tk = _keyed(j.err), _keyed(t.err)
+    assert set(tk) - set(jk) <= PORT_ONLY | VARIES, set(tk) - set(jk)
+    assert set(jk) - set(tk) <= VARIES, set(jk) - set(tk)
+    for key in set(jk) - VARIES:
+        assert tk[key] == jk[key], key
+    if "--counters" in args:
+        assert {"total", "csv"} <= set(tk)
+    return tk
+
+
+@pytest.fixture(scope="module")
+def dup_nt_file(tmp_path_factory):
+    """A file with repeated triples, for --distinct-triples."""
+    path = tmp_path_factory.mktemp("nt") / "dup.nt"
+    t = synth.generate_triples(300, seed=6, n_predicates=5, n_entities=40)
+    write_nt(path, list(t) + list(t[:120]))
+    return str(path)
+
+
+@pytest.mark.parametrize("flags,ingest_path", [
+    (["--explicit-threshold", "3"], "native"),
+    (["--explicit-threshold", "0", "--sbf-bytes", "3",
+      "--merge-window-size", "2048"], "native"),
+    (["--explicit-threshold", "2", "--traversal-strategy", "0",
+      "--merge-window-size", "4096"], "native"),
+    (["--sbf-bytes=4"], "native"),
+    (["--use-fis", "--use-ars", "--ar-output", "@ar.txt", "--debug-level",
+      "2"], "native"),
+    (["--use-fis", "--ar-output", "@ar.txt", "--traversal-strategy", "0"],
+     "native"),
+    (["--ar-output", "@ar.txt"], "native"),
+    (["--find-only-fcs", "1"], "native"),
+    (["--find-only-fcs", "2", "--use-fis", "--use-ars"], "native"),
+    (["--create-join-histogram", "--do-only-join"], "native"),
+    (["--create-join-histogram", "--traversal-strategy", "0",
+      "--projection", "po"], "native"),
+    (["--only-read"], "python"),
+    (["--no-native-ingest", "--traversal-strategy", "2"], "python"),
+    (["--debug-level", "3", "--use-fis"], "native"),
+    (["--encoding", "UTF8", "--file-filter", r"\.nt$"], "native"),
+    (["--no-bulk-merge", "--hash-bytes", "4", "--find-frequent-captures",
+      "--rebalance-split", "2", "--hash-function", "SHA1",
+      "--rebalance-join", "--any-binary-captures"], "native"),
+])
+def test_single_device_flags_match_jax(nt_file, capsys, tmp_path, flags,
+                                       ingest_path):
+    args = [nt_file, "--support", "3", "--output", "@out.txt",
+            "--counters", "1", *flags]
+    tk = run_both(args, capsys, tmp_path)
+    assert tk["ingest-path"] == [f"ingest-path: {ingest_path}"]
+
+
+def test_distinct_triples_match_jax(dup_nt_file, capsys, tmp_path):
+    tk = run_both([dup_nt_file, "--support", "2", "--distinct-triples",
+                   "--output", "@out.txt", "--counters", "1"], capsys, tmp_path)
+    t = synth.generate_triples(300, seed=6, n_predicates=5, n_entities=40)
+    n = len(np.unique(t, axis=0))
+    assert n < 300
+    assert tk["distinct-triples"] == [f"distinct-triples: {n}"]
+    assert tk["input-triples"] == ["input-triples: 420"]
+
+
+def test_print_plan_matches_jax(nt_file, capsys, tmp_path):
+    args = [nt_file, "--support", "3", "--print-plan", "--output", "@o.txt",
+            "--ar-output", "@ar.txt", "--explicit-threshold", "5", "--use-fis",
+            "--use-ars", "--clean-implied", "--distinct-triples",
+            "--asciify-triples", "--collect-result"]
+    run_both(args, capsys, tmp_path)
+    assert tcli.main([nt_file, "--print-plan", "--only-read", "--prefixes",
+                      nt_file, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    plan = json.loads(out[:out.rindex("}") + 1])
+    assert plan["stages"]["ingest"] == ["read+parse", "shorten-urls",
+                                        "intern"]
+    assert plan["n_devices"] == 1
+
+
+@pytest.fixture(scope="module")
+def iri_files(tmp_path_factory):
+    """Triples of full IRIs under two namespaces with non-ASCII literals, as
+    N-Triples, N-Triples.gz, tab-separated, N-Quads, Latin-1 and UTF-16, and
+    a prefix file for both namespaces."""
+    d = tmp_path_factory.mktemp("iri")
+    t = synth.generate_triples(300, seed=8, n_predicates=5, n_entities=40)
+    ns = ["http://example.org/res/", "http://dbpedia.org/resource/"]
+    words = ["Zürich", "café", "naïve", "plain"]
+
+    def term(i, obj):
+        if obj and i % 3 == 0:
+            return f'"{words[i % 4]} {i % 7}"'
+        return f"<{ns[i % 2]}e{i}>"
+
+    rows = [(term(s, False), term(p, False), term(o, True)) for s, p, o in t]
+    nt = "".join(f"{s} {p} {o} .\n" for s, p, o in rows)
+    files = {}
+    for name, data, enc in (("data.nt", nt, "utf-8"),
+                            ("latin.nt", nt, "latin-1"),
+                            ("bom.nt", nt, "utf-16")):
+        files[name] = d / name
+        files[name].write_bytes(data.encode(enc))
+    files["data.nt.gz"] = d / "data.nt.gz"
+    with gzip.open(files["data.nt.gz"], "wt") as f:
+        f.write(nt)
+    files["data.tsv"] = d / "data.tsv"
+    files["data.tsv"].write_text(
+        "".join(f"{s}\t{p}\t{o}\n" for s, p, o in rows))
+    files["data.nq"] = d / "data.nq"
+    files["data.nq"].write_text(
+        "".join(f"{s} {p} {o} <http://g/{i % 3}> .\n"
+                for i, (s, p, o) in enumerate(rows)))
+    files["prefixes"] = d / "prefixes.ttl"
+    files["prefixes"].write_text(
+        "@prefix ex: <http://example.org/res/> .\n"
+        "@prefix dbr: <http://dbpedia.org/resource/> .\n")
+    return {k: str(v) for k, v in files.items()}
+
+
+@pytest.mark.parametrize("inputs,flags,ingest_path", [
+    (["data.nt"], ["--prefixes", "prefixes"], "python"),
+    (["data.nt"], ["--asciify-triples"], "python"),
+    (["data.nt"], ["--asciify-triples", "--prefixes", "prefixes"], "python"),
+    (["data.nt.gz"], [], "native"),
+    (["data.tsv"], ["--tabs"], "native"),
+    (["data.nq"], [], "native"),
+    (["latin.nt"], ["--encoding", "latin-1"], "python"),
+    (["bom.nt"], ["--encoding", "auto"], "python"),
+    (["data.nt", "data.nt.gz"], ["--traversal-strategy", "3"], "native"),
+])
+def test_ingest_options_match_jax(iri_files, capsys, tmp_path, inputs, flags,
+                                  ingest_path):
+    flags = [iri_files.get(f, f) for f in flags]
+    args = [iri_files[i] for i in inputs] + [
+        "--support", "3", "--output", "@out.txt", "--counters", "1", *flags]
+    tk = run_both(args, capsys, tmp_path)
+    assert tk["ingest-path"] == [f"ingest-path: {ingest_path}"]
+    assert (tmp_path / "torchout.txt").read_text().count(" < ") > 0

@@ -348,3 +348,75 @@ def test_chunk_loop_syncs_only_at_its_pulls(cuda, monkeypatch):
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)
+
+
+HA_KEYS = ("ha_spilled", "ha_round2_deps", "ha_explicit_pairs",
+           "ha_round2_merged_pairs", "ha_round2_rows")
+
+
+@pytest.mark.parametrize("threshold,width", [(0, 1 << 20), (3, 64),
+                                             (64, 1 << 20)])
+def test_half_approx_round_on_cuda_equals_cpu(cuda, threshold, width):
+    """The count-min sketch lives on the card; rows and the ha_* statistics
+    equal the CPU run's, and the output the exact path's."""
+    triples = synth.generate_triples(3000, seed=5)
+    kw = dict(strategy=1, explicit_threshold=threshold, sbf_width=width,
+              pair_chunk_budget=1 << 14)
+    stats, cpu_stats = {}, {}
+    got = rdfind_tpu_torch.discover(triples, 3, device=cuda, stats=stats, **kw)
+    want = rdfind_tpu_torch.discover(triples, 3, device="cpu",
+                                     stats=cpu_stats, **kw)
+    assert len(want) > 0 and got.to_rows() == want.to_rows()
+    for key in HA_KEYS + S2L_KEYS:
+        assert stats[key] == cpu_stats[key], key
+    assert stats["ha_spilled"] > 0
+    exact = rdfind_tpu_torch.discover(triples, 3, strategy=1, device=cuda)
+    assert got.to_rows() == exact.to_rows()
+
+
+def test_count_min_on_cuda_past_the_cap(cuda):
+    """count_min_add on the card equals the CPU build and merge_count_min of
+    per-part builds, with sums far past the cap."""
+    cap = sketch.MAX_COUNT_MIN_CAP
+    rng = np.random.default_rng(1)
+    parts = []
+    for _ in range(6):
+        keys = torch.as_tensor(rng.integers(0, 50, 3000).astype(np.int32))
+        cnts = torch.as_tensor(rng.integers(cap // 4, cap + 9, 3000)
+                               .astype(np.int32))
+        valid = torch.as_tensor(rng.random(3000) < 0.9)
+        parts.append((keys, cnts, valid))
+    whole = [torch.cat(c) for c in zip(*parts)]
+    got = sketch.count_min_add(*(t.to(cuda) for t in whole), bits=256,
+                               num_hashes=4)
+    assert got.device.type == "cuda"
+    want = sketch.merge_count_min(
+        [sketch.count_min_add(*p, bits=256, num_hashes=4) for p in parts])
+    assert int(want.max()) == cap
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu(), sketch.count_min_add(*whole, bits=256,
+                                                       num_hashes=4))
+    q = torch.arange(60, dtype=torch.int32)
+    assert torch.equal(
+        sketch.count_min_query(got, q.to(cuda), bits=256, num_hashes=4).cpu(),
+        sketch.count_min_query(want, q, bits=256, num_hashes=4))
+
+
+def test_native_ingest_then_upload(cuda, tmp_path):
+    """The native engine's ids, uploaded to the card, give the CPU run's CINDs
+    and equal the Python ingest's ids and dictionary."""
+    from rdfind_tpu_torch.dictionary import intern_triples
+    from rdfind_tpu_torch.io import native, ntriples, reader
+
+    triples = synth.generate_triples(3000, seed=5)
+    path = tmp_path / "d.nt"
+    path.write_text("".join(f"<e{s}> <e{p}> <e{o}> .\n" for s, p, o in triples))
+    ids, dictionary = native.ingest_files([str(path)], threads=4)
+    rows = [ntriples.parse_line(ln) for _, ln in reader.iter_lines([str(path)])]
+    ids_py, dict_py = intern_triples(np.asarray(rows, dtype=object))
+    np.testing.assert_array_equal(ids, ids_py)
+    assert list(dictionary.values) == list(dict_py.values)
+    on_card = torch.as_tensor(ids).to(cuda)
+    got = rdfind_tpu_torch.discover(on_card, 3, strategy=1, device=cuda)
+    want = rdfind_tpu_torch.discover(ids, 3, strategy=1, device="cpu")
+    assert len(want) > 0 and got.to_rows() == want.to_rows()

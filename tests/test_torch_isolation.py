@@ -128,3 +128,18 @@ def test_kernel_wrapper_refuses_other_devices():
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernels.pipeline_probe(torch.zeros((16, 128), device="meta"))
     assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_native_library_builds_into_build_not_the_jax_package():
+    """The port builds native/rdfind_native.cpp itself into build/ and never
+    loads or builds the JAX package's library."""
+    from rdfind_tpu_torch.io import native
+
+    assert native.library_path().parent == native.BUILD_DIR
+    assert str(native.BUILD_DIR) == os.path.join(REPO, "build")
+    assert str(native.SOURCE) == os.path.join(REPO, "native",
+                                              "rdfind_native.cpp")
+    for path in _sources():
+        text = open(path).read()
+        assert "_rdfind_native.so" not in text, path
+        assert "RDFIND_NATIVE_SO" not in text, path

@@ -241,13 +241,6 @@ def test_chunked_cooc_matches_jax(balanced, budget):
     assert t_stats["n_pair_chunks"] >= (5 if budget == 64 else 1)
 
 
-def test_half_approximate_round_is_not_ported():
-    ids, _ = _intern([("a", "p", "b")])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rdfind_tpu_torch.discover(ids, 1, strategy=1, device="cpu",
-                                  explicit_threshold=4)
-
-
 def test_auto_falls_back_to_chunked_past_single_shot(monkeypatch):
     """A capture axis above SINGLE_SHOT_C takes the chunked walk under "auto"
     and makes "matmul" raise."""
