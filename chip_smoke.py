@@ -52,7 +52,21 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    --counters 1`` and one with ``--prefixes`` on a prefix file written here;
    each output file must equal the strategy-1 golden's CINDs decoded to the
    same terms, line for line;
-11. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+11. ``planes``: the runtime and observability planes through the CLI on that
+   file.  Strategy 0 with ``--trace``, ``--metrics-file``, ``--profile-dir``,
+   ``--checkpoint-dir`` and ``RDFIND_CERT``: the output equals the strategy-0
+   golden line for line, the certificate's output digest the JAX package's,
+   the span tree holds the stage spans, the exposition ``rdfind_*`` metrics,
+   and the profiler trace one K1 device event per counted launch.  The same
+   command again resumes both stages, byte for byte.  The CLI default with an
+   injected ``host_pull`` fault (one retry) and with a failed
+   ``checkpoint_write`` (rc 0, ``checkpoint-errors`` 1), output unchanged.
+   Strategy 2 under ``--profile-dir``: K2, P1 and P2 events equal to their
+   launch counts; ``sketch.kernel_selfcheck``.  The CLI default with tracing,
+   metrics and the certificate on, beside the plain ``cli`` row (the planes'
+   cost), and its stage-boundary ``hbm`` record against
+   ``torch.cuda.max_memory_allocated``;
+12. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
    The kernel phase also times an empty launch (``launch_floor``), the
    practical floor under the probes P1 and P2.
 
@@ -68,6 +82,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -81,9 +96,10 @@ import rdfind_tpu_torch  # noqa: E402
 from rdfind_tpu_torch.dictionary import Dictionary, intern_triples  # noqa: E402
 from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
-from rdfind_tpu_torch.obs import integrity  # noqa: E402
+from rdfind_tpu_torch.obs import integrity, metrics, report  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
 from rdfind_tpu_torch.programs import rdfind as cli  # noqa: E402
+from rdfind_tpu_torch.runtime import faults  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit.
@@ -143,6 +159,14 @@ GOLDEN_S2L = {
                       n_cinds_22=0, total_pairs=79284596),
 }
 GOLDEN_S2L_CLEAN = dict(n_cinds=316739, digest="d45fdf70356a9b01")
+# The CLI's strategy-0 run on build/smoke/headline.nt: its ids are the file's
+# (the terms <e{id}> interned in sorted order), so its output digest differs
+# from GOLDEN's.  Recorded from the JAX package's library on those interned
+# ids, with the frequent-condition filter on (it prunes only captures that
+# cannot be in a CIND; ~12 s on one core):
+#   ids, _ = rdfind_tpu.dictionary.intern_triples(terms_of(t)[t])
+#   table = rdfind_tpu.discover(ids, 10, strategy=0)
+GOLDEN_CLI_S0 = dict(output_digest="e43e14947a4bc087", n_cinds=622016)
 # The half-approximate 1/1 round of strategy 1, recorded the same way from
 #   rdfind_tpu.models.small_to_large.discover(t, 10, explicit_threshold=th,
 #                                             stats=st)   # ~7 min on one core
@@ -851,11 +875,12 @@ def run_cli(argv, want_lines, ingest_path: str) -> dict:
     return row
 
 
-def run_cli_phase(triples, paths, device) -> list:
+def run_cli_phase(triples, paths, device) -> tuple:
     """The CLI with no flag but ``--support 10`` (strategy 1 without the
     filter: the chunked walk; native ingest), with the half-approximate
     round, and with the prefix file (Python ingest), each held line for line
-    against the filtered strategy-1 run's CINDs decoded to the same terms."""
+    against the filtered strategy-1 run's CINDs decoded to the same terms.
+    Returns the rows and those golden lines."""
     want = rdfind_tpu_torch.discover(triples, 10, strategy=1, device=device)
     check_run("headline, strategy 1 (for the CLI)", want, {},
               {k: GOLDEN_S2L["headline"][k] for k in ("n_cinds", "digest")})
@@ -864,13 +889,225 @@ def run_cli_phase(triples, paths, device) -> list:
     short = sorted(c.pretty() for c in
                    want.decoded(Dictionary(shortened(terms))))
     nt = paths["nt"]
-    return [
+    rows = [
         run_cli([nt, "--support", "10"], lines, "native"),
         run_cli([nt, "--support", "10", "--explicit-threshold", "64"], lines,
                 "native"),
         run_cli([nt, "--support", "10", "--prefixes", paths["prefixes"]],
                 short, "python"),
     ]
+    return rows, lines
+
+
+@contextlib.contextmanager
+def environ(**kv):
+    """Set environment variables for one CLI run (and forget any cached fault
+    plan before and after it)."""
+    saved = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    faults.reset()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        faults.reset()
+
+
+def plane_cli(label, argv, want_lines, **env) -> dict:
+    """One in-process CLI run with ``--counters 1`` under `env`: rc 0 and its
+    output file equal to `want_lines`, or raise.  Returns its wall, counters,
+    phases and output path."""
+    out = os.path.join(SCRATCH, f"planes_{label}.txt")
+    err = io.StringIO()
+    metrics.reset()
+    with environ(**env):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, "--output", out, "--counters", "1"])
+        wall = time.perf_counter() - t0
+    counters, phases = {}, {}
+    for ln in err.getvalue().splitlines():
+        m = re.match(r"phase (.+): ([0-9.]+) ms$", ln)
+        if m:
+            phases[m.group(1)] = float(m.group(2)) / 1e3
+        elif ": " in ln:
+            k, v = ln.split(": ", 1)
+            counters[k] = v
+    with open(out) as f:
+        got = f.read().splitlines()
+    if rc != 0 or got != want_lines:
+        raise AssertionError(f"planes {label}: rc {rc}, {len(got)} lines, "
+                             f"want {len(want_lines)} golden lines")
+    return dict(wall_s=wall, counters=counters, phases_s=phases, out=out)
+
+
+def profile_counts(profile_dir, label) -> dict:
+    """Kernel events by wrapper in a --profile-dir trace; fails when the card
+    gave the profiler no device event at all."""
+    path = os.path.join(profile_dir, "profile.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    n_device = sum(e.get("cat") == "kernel" for e in events)
+    if n_device == 0:
+        raise AssertionError(f"planes {label}: the profiler trace holds no "
+                             f"device event")
+    return dict(device_events=n_device,
+                by_kernel=report.profile_kernel_counts(path, kernels.SYMBOLS))
+
+
+def check_traced_run(trace_dir, metrics_file, cert_path) -> dict:
+    """The span tree of --trace, the Prometheus text of --metrics-file and
+    the certificate; returns what was checked."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        json.load(f)
+    roots, unclosed = report.build_span_tree(report.load_events(
+        os.path.join(trace_dir, "events-host0.jsonl")))
+    stages = [n["name"] for n in roots[0]["children"]
+              if n["cat"] == "stage"] if roots else []
+    if unclosed or [r["name"] for r in roots] != ["run"] or stages[:1] != \
+            ["read+parse"] or "discover" not in stages \
+            or "write-output" not in stages:
+        raise AssertionError(f"planes: span tree {stages}, "
+                             f"{len(unclosed)} unclosed")
+    with open(metrics_file) as f:
+        prom = [ln for ln in f.read().splitlines()
+                if ln and not ln.startswith("#")]
+    names = {ln.split(" ")[0].split("{")[0] for ln in prom}
+    if not prom or not all(n.startswith("rdfind_") for n in names) \
+            or "rdfind_total_pairs" not in names:
+        raise AssertionError(f"planes: metrics file holds {sorted(names)}")
+    with open(cert_path) as f:
+        cert = json.load(f)
+    return dict(stage_spans=stages, prometheus_metrics=len(names),
+                prometheus_samples=len(prom), cert=cert)
+
+
+def run_planes_phase(triples, paths, device, s1_lines, cli_row) -> list:
+    """The runtime and observability planes through the CLI on the headline
+    file: a traced, exported, profiled and checkpointed strategy-0 run, its
+    resume, the fault gate on the CLI default, K2 in a profiler trace with
+    kernel_selfcheck, and what the planes cost against the plain CLI default
+    (``cli_row``)."""
+    terms = terms_of(triples)
+    s0 = rdfind_tpu_torch.discover(triples, 10, strategy=0, device=device)
+    check_run("headline, strategy 0 (for the planes)", s0, {},
+              {k: GOLDEN["headline"][k] for k in ("n_cinds", "digest")})
+    s0_lines = sorted(c.pretty() for c in s0.decoded(Dictionary(terms)))
+    del s0
+    nt, rows = paths["nt"], []
+    d = {k: os.path.join(SCRATCH, "planes", k)
+         for k in ("trace", "prof", "ckpt", "ckpt_fault", "prof_k2",
+                   "trace_cost")}
+    for k in d:
+        shutil.rmtree(d[k], ignore_errors=True)
+    cert, cert_cost = (os.path.join(SCRATCH, "planes", f)
+                       for f in ("cert.json", "cert_cost.json"))
+    metrics_file = os.path.join(SCRATCH, "planes", "metrics.prom")
+
+    # 1. Tracing, export, profiler and checkpoints on strategy 0.
+    argv = [nt, "--traversal-strategy", "0", "--support", "10", "--trace",
+            d["trace"], "--metrics-file", metrics_file, "--profile-dir",
+            d["prof"], "--checkpoint-dir", d["ckpt"]]
+    kernels.reset_launches()
+    run1 = plane_cli("traced_s0", argv, s0_lines, RDFIND_CERT=cert)
+    launches = dict(kernels.LAUNCHES)
+    traced = check_traced_run(d["trace"], metrics_file, cert)
+    prof = profile_counts(d["prof"], "traced_s0")
+    got_cert = {k: traced["cert"][k] for k in ("output_digest", "n_cinds")}
+    if got_cert != GOLDEN_CLI_S0:
+        raise AssertionError(f"planes: certificate {got_cert}, the JAX "
+                             f"package gives {GOLDEN_CLI_S0}")
+    k1 = launches["fused_cind_blocks"]
+    if k1 <= 0 or prof["by_kernel"]["fused_cind_blocks"] != k1:
+        raise AssertionError(f"planes: {k1} K1 launches counted, "
+                             f"{prof['by_kernel']} in the profiler trace")
+    rows.append(dict(phase="planes", run="traced_s0", wall_s=run1["wall_s"],
+                     phases_s=run1["phases_s"], n_lines=len(s0_lines),
+                     golden_match=True, certificate=got_cert,
+                     stage_spans=traced["stage_spans"],
+                     prometheus_metrics=traced["prometheus_metrics"],
+                     k1_launches=k1, profile=prof))
+
+    # 2. The same command again resumes both stages.
+    run2 = plane_cli("resumed_s0", argv, s0_lines, RDFIND_CERT=cert)
+    with open(run1["out"], "rb") as a, open(run2["out"], "rb") as b:
+        identical = a.read() == b.read()
+    if not (identical and run2["counters"].get("resumed-ingest") == "1"
+            and run2["counters"].get("resumed-discover") == "1"
+            and "resume-ingest" in run2["phases_s"]
+            and "resume-discover" in run2["phases_s"]):
+        raise AssertionError(f"planes: resume {run2['phases_s']}, "
+                             f"byte-identical {identical}")
+    rows.append(dict(phase="planes", run="resumed_s0", wall_s=run2["wall_s"],
+                     first_run_wall_s=run1["wall_s"],
+                     phases_s=run2["phases_s"], byte_identical=True))
+
+    # 3. The fault gate on the CLI default (strategy 1's chunked walk).
+    fault = plane_cli("host_pull_fault", [nt, "--support", "10"], s1_lines,
+                      RDFIND_FAULTS="host_pull:nth=2",
+                      RDFIND_BACKOFF_BASE_MS="1")
+    if fault["counters"].get("stat-n_host_pull_retries") != "1":
+        raise AssertionError(f"planes: host_pull retries "
+                             f"{fault['counters'].get('stat-n_host_pull_retries')}")
+    ck = plane_cli("checkpoint_write_fault", [nt, "--support", "10",
+                                              "--checkpoint-dir",
+                                              d["ckpt_fault"]],
+                   s1_lines, RDFIND_FAULTS="checkpoint_write")
+    if ck["counters"].get("checkpoint-errors") != "1":
+        raise AssertionError(f"planes: checkpoint-errors "
+                             f"{ck['counters'].get('checkpoint-errors')}")
+    rows.append(dict(phase="planes", run="faults",
+                     host_pull_wall_s=fault["wall_s"],
+                     n_host_pull_retries=1,
+                     backoff_ms_total=fault["counters"].get(
+                         "stat-backoff_ms_total"),
+                     checkpoint_write_wall_s=ck["wall_s"],
+                     checkpoint_errors=1, output_unchanged=True))
+
+    # 4. K2 and the probes in a profiler trace; K2's selfcheck.
+    kernels.reset_contains_check()
+    kernels.reset_launches()
+    k2 = plane_cli("k2_profile", [nt, "--support", "10", "--use-fis",
+                                  "--traversal-strategy", "2",
+                                  "--profile-dir", d["prof_k2"]], s0_lines)
+    launches = dict(kernels.LAUNCHES)
+    prof2 = profile_counts(d["prof_k2"], "k2_profile")
+    for name in K2_PATH:
+        if launches[name] <= 0 or prof2["by_kernel"][name] != launches[name]:
+            raise AssertionError(f"planes: {name} launched {launches[name]}"
+                                 f", {prof2['by_kernel']} in the trace")
+    selfcheck = sketch.kernel_selfcheck(device=device)
+    if not selfcheck["parity"]:
+        raise AssertionError(f"planes: kernel_selfcheck {selfcheck}")
+    rows.append(dict(phase="planes", run="k2_profile", wall_s=k2["wall_s"],
+                     launches={k: launches[k] for k in K2_PATH},
+                     profile=prof2, kernel_selfcheck=selfcheck))
+
+    # 5. What the planes cost: the CLI default with --trace, --metrics-file
+    # and RDFIND_CERT, against the plain cli row; the stage watermark.
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    cost = plane_cli("cost", [nt, "--support", "10", "--trace",
+                              d["trace_cost"], "--metrics-file",
+                              metrics_file], s1_lines, RDFIND_CERT=cert_cost)
+    hbm = metrics.registry().get("hbm")
+    peak = torch.cuda.max_memory_allocated(device)
+    if not hbm or hbm["peak_bytes"] != peak:
+        raise AssertionError(f"planes: hbm record {hbm}, "
+                             f"max_memory_allocated {peak}")
+    rows.append(dict(phase="planes", run="cost", wall_s=cost["wall_s"],
+                     plain_wall_s=cli_row["wall_s"],
+                     overhead_s=cost["wall_s"] - cli_row["wall_s"],
+                     phases_s=cost["phases_s"],
+                     plain_phases_s=cli_row["phases_s"], hbm=hbm,
+                     max_memory_allocated=peak))
+    for row in rows:
+        emit(row)
+    return rows
 
 
 def main() -> int:
@@ -970,7 +1207,8 @@ def main() -> int:
     # Native ingest against the Python ingest, then the CLI on those files.
     paths = write_inputs(headline)
     run_ingest(headline, paths)
-    run_cli_phase(headline, paths, device)
+    cli_rows, s1_lines = run_cli_phase(headline, paths, device)
+    run_planes_phase(headline, paths, device, s1_lines, cli_rows[0])
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.

@@ -11,7 +11,10 @@ Ported so far, on one device: the four traversal strategies, 0 (AllAtOnce), 1
 (ApproximateAllAtOnce) and 3 (LateBB), each with the dense and the chunked pair
 backend; the native fused ingest (``native/rdfind_native.cpp``, built at first
 use into ``build/``); the single-device CLI and the small programs of
-``programs/``.  What remains is listed in ROADMAP.md.
+``programs/``; the single-device runtime and observability planes (``obs/``,
+``runtime/``: tracing, metrics export, memory watermarks, the data and
+integrity planes, stage checkpoints, fault injection, the result collector,
+profiler traces).  What remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

@@ -52,6 +52,7 @@ import numpy as np
 from torch.profiler import record_function
 
 from ..dictionary import Dictionary
+from ..obs import metrics, tracer
 from ..ops.build import BUILD_DIR
 
 SOURCE = Path(__file__).resolve().parents[2] / "native" / "rdfind_native.cpp"
@@ -445,20 +446,25 @@ class BlockAssembler:
 def _ingest_parallel(paths, tabs, expect_quad, skip_comments, threads,
                      chunk_bytes, stats):
     t_wall = time.perf_counter()
-    with IngestStream(paths, tabs=tabs, expect_quad=expect_quad,
-                      skip_comments=skip_comments, threads=threads,
-                      chunk_bytes=chunk_bytes) as stream:
-        asm = BlockAssembler()
-        for block, thread_id in stream:
-            asm.add(block, thread_id)
-        remaps = stream.finish()
-        t0 = time.perf_counter()
-        ids = asm.finalize(remaps)
-        remap_ms = (time.perf_counter() - t0) * 1000.0
-        raw, offsets = stream.raw_values()
-        st = stream.stats()
-    values, lossless = _values_from_buffer(raw, offsets)
-    ids, dictionary = canonicalize(ids, values, lossless)
+    with tracer.span("ingest-parallel", cat=tracer.CAT_STAGE,
+                     files=len(paths), threads=ingest_threads(threads)):
+        with IngestStream(paths, tabs=tabs, expect_quad=expect_quad,
+                          skip_comments=skip_comments, threads=threads,
+                          chunk_bytes=chunk_bytes) as stream:
+            asm = BlockAssembler()
+            with tracer.span("ingest-stream", cat=tracer.CAT_STAGE):
+                for block, thread_id in stream:
+                    asm.add(block, thread_id)
+            with tracer.span("ingest-merge", cat=tracer.CAT_STAGE):
+                remaps = stream.finish()
+            with tracer.span("ingest-remap", cat=tracer.CAT_STAGE):
+                t0 = time.perf_counter()
+                ids = asm.finalize(remaps)
+                remap_ms = (time.perf_counter() - t0) * 1000.0
+            raw, offsets = stream.raw_values()
+            st = stream.stats()
+        values, lossless = _values_from_buffer(raw, offsets)
+        ids, dictionary = canonicalize(ids, values, lossless)
     if stats is not None:
         st["remap_ms"] += remap_ms  # the host-side block rewrite
         publish_stats(stats, st, ids.shape[0], len(dictionary), t_wall)
@@ -472,12 +478,15 @@ def _ingest_serial(paths, tabs, expect_quad, skip_comments, stats):
     _apply_opts(lib, h)
     try:
         for p in paths:
-            rc = lib.rdf_ingest_file(h, os.fspath(p).encode(), int(tabs),
-                                     int(expect_quad), int(skip_comments))
+            with tracer.span("ingest-file", cat=tracer.CAT_STAGE,
+                             path=os.path.basename(os.fspath(p))):
+                rc = lib.rdf_ingest_file(h, os.fspath(p).encode(), int(tabs),
+                                         int(expect_quad), int(skip_comments))
             if rc < 0:
                 raise NativeIngestError(
                     lib.rdf_ingest_error(h).decode(errors="replace"))
-        n_values = lib.rdf_ingest_finalize(h)
+        with tracer.span("ingest-finalize", cat=tracer.CAT_STAGE):
+            n_values = lib.rdf_ingest_finalize(h)
         n_triples = lib.rdf_ingest_num_triples(h)
         ids = np.empty((n_triples, 3), np.int32)
         if n_triples:
@@ -501,7 +510,10 @@ def _ingest_serial(paths, tabs, expect_quad, skip_comments, stats):
 def publish_stats(stats: dict, st: dict, n_triples: int, n_values: int,
                   t_wall: float) -> None:
     """Finish the engine's stats lanes (wall time, rates, rounded phase ms)
-    and merge them into the caller's ingest dict."""
+    and merge them into the caller's ingest dict and the registry mirror (so
+    bytes/s, triples/s etc. reach the Prometheus exposition); the phase
+    latencies also land in ``ingest_<phase>_ms`` histograms, as in the JAX
+    package."""
     wall_s = max(time.perf_counter() - t_wall, 1e-9)
     st["wall_ms"] = round(wall_s * 1000.0, 1)
     st["triples"] = int(n_triples)
@@ -512,7 +524,9 @@ def publish_stats(stats: dict, st: dict, n_triples: int, n_values: int,
               "remap_ms", "queue_stall_ms"):
         if k in st:
             st[k] = round(st[k], 2)
-    stats.update(st)
+            metrics.observe(f"ingest_{k}", st[k])
+    metrics.observe("ingest_wall_ms", st["wall_ms"])
+    metrics.mutate(stats, lambda c: c.update(st))
 
 
 def ingest_files(paths, tabs: bool = False, expect_quad: bool = False,

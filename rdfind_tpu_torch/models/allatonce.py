@@ -29,10 +29,11 @@ from torch.profiler import record_function
 
 from .. import devices
 from ..data import CindTable
-from ..obs import integrity, metrics
+from ..obs import datastats, integrity, metrics
 from .. import conditions as cc
 from ..ops import cooc, frequency, minimality, pairs, segments
 from ..ops.emission import emit_join_candidates
+from ..runtime import dispatch, faults
 
 # Ordered pairs one chunk of the chunked backend materializes at most (the JAX
 # package's budget); a line with more pairs is a chunk of its own.
@@ -144,7 +145,26 @@ def prepare_join_lines(triples, min_support: int, projections: str,
     metrics.set_many(stats, n_triples=n, n_line_rows=n_rows,
                      n_frequent_rows=n_keep, n_captures=num_caps,
                      total_pairs=0)
+    if stats is not None and datastats.enabled():
+        # line_val_h is (value, capture)-sorted: its runs are the lines.
+        _, lens = line_runs(state["line_val_h"])
+        publish_datastats(stats, lens, state["dep_count"])
     return state
+
+
+def publish_datastats(stats, line_lens, dep_count) -> None:
+    """The data plane's join-line size histogram and capture support
+    spectrum of a single-device run (the JAX package's publish sites)."""
+    line_lens = np.asarray(line_lens, np.int64)
+    sup = np.asarray(dep_count, np.int64)
+    datastats.publish_line_stats(
+        stats, hist=datastats.log2_bucket_counts(line_lens),
+        n_lines=int((line_lens > 0).sum()),
+        max_line=int(line_lens.max()) if line_lens.size else 0,
+        source="single")
+    datastats.publish_capture_spectrum(
+        stats, hist=datastats.log2_bucket_counts(sup), n_captures=sup.size,
+        max_support=int(sup.max()) if sup.size else 0, source="single")
 
 
 def _stage_membership(line_gid, cap_id, valid, min_support: int, *,
@@ -231,6 +251,8 @@ def _discover_dense(triples, min_support: int, projections: str,
         n_lines=int((lens_h > 0).sum()), n_captures=num_caps,
         total_pairs=int((lens_h * (lens_h - 1)).sum()),
         max_line=int(lens_h.max()), pair_backend="matmul")
+    if stats is not None and datastats.enabled():
+        publish_datastats(stats, lens_h, dep_count_h)
     if dep_id.size == 0:
         return CindTable.empty()
     table = CindTable(
@@ -308,24 +330,10 @@ def _stage_pair_counts(line_cap, pos, length, start_idx, *, capacity: int,
     return out_key[:capacity], cnt, n_out
 
 
-def _stage_to_host(chunk):
-    """Start a chunk's device-to-host copy: non-blocking into pinned host
-    buffers, fenced by a CUDA event.  CPU chunks pass through."""
-    key, cnt, n_out = chunk
-    if key.device.type != "cuda":
-        return chunk, None
-    host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                 for t in chunk)
-    for h, t in zip(host, chunk):
-        h.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    return host, done
-
-
 def _pull_chunk(staged):
     """Wait for a staged chunk's copy (the loop's one host sync per chunk) and
-    return its host (dep, ref, cnt) int64 arrays."""
+    return its host (dep, ref, cnt) int64 arrays.  A pure read of the chunk's
+    own host buffers, so a retried pull re-reads the same bytes."""
     (key, cnt, n_out), done = staged
     if done is not None:
         done.synchronize()
@@ -357,6 +365,11 @@ def iter_chunk_pairs(line_val_h, line_cap_h, budget: int, device, *,
     on the device before chunk i is pulled, so the host's work on chunk i
     overlaps the device's on chunk i + 1; the pull of a chunk is the loop's
     only host sync.  ``n_pair_chunks`` counts chunks.
+
+    Each pull runs through the ``host_pull`` fault gate with bounded retry
+    (``faults.guarded_pull``; a retry publishes ``n_host_pull_retries`` and
+    ``backoff_ms_total``), and RDFIND_SYNC_PASSES selects the serial schedule,
+    which pulls each chunk before it queues the next (the same chunks).
     """
     n = line_val_h.shape[0]
     first, lens = line_runs(line_val_h)
@@ -387,6 +400,12 @@ def iter_chunk_pairs(line_val_h, line_cap_h, budget: int, device, *,
         dev(a) for a in (line_cap_h, pos_h, len_h, start_h, dep_f_h, ref_f_h))
     bounds = _chunk_boundaries(pairs_per_line, budget)
     row_of = np.append(first, n)
+    pipelined = not dispatch.sync_passes_forced()
+    pull_base = faults.pull_stats()
+
+    def pull(staged):
+        return faults.guarded_pull(lambda: _pull_chunk(staged))
+
     pend = None
     for lo_line, hi_line in zip(bounds[:-1], bounds[1:]):
         rs, re = int(row_of[lo_line]), int(row_of[hi_line])
@@ -396,17 +415,32 @@ def iter_chunk_pairs(line_val_h, line_cap_h, budget: int, device, *,
         metrics.counter_add(stats, "n_pair_chunks")
         sl = slice(rs, re)
         with record_function("rdfind.chunk"):
-            staged = _stage_to_host(_stage_pair_counts(
+            staged = dispatch.stage_to_host(_stage_pair_counts(
                 cap_d[sl], pos_d[sl], len_d[sl], start_d[sl] - rs,
                 capacity=capacity,
                 dep_f=None if dep_d is None else dep_d[sl],
                 ref_f=None if ref_d is None else ref_d[sl],
                 balanced=balanced))
+        if not pipelined:
+            yield pull(staged)
+            continue
         if pend is not None:
-            yield _pull_chunk(pend)
+            yield pull(pend)
         pend = staged
     if pend is not None:
-        yield _pull_chunk(pend)
+        yield pull(pend)
+    _publish_pull_retries(stats, pull_base)
+
+
+def _publish_pull_retries(stats, base: dict) -> None:
+    """Add the loop's pull retries and backoff to `stats`; nothing when no
+    pull was retried."""
+    now = faults.pull_stats()
+    retries = now["n_host_pull_retries"] - base["n_host_pull_retries"]
+    if retries:
+        metrics.counter_add(stats, "n_host_pull_retries", retries)
+        metrics.time_add(stats, "backoff_ms_total",
+                         now["backoff_ms_total"] - base["backoff_ms_total"])
 
 
 def _stage_merge(dep, ref, cnt, min_support: int, dep_count, cap_code, cap_v1,

@@ -35,7 +35,7 @@ from torch.profiler import record_function
 from .. import conditions as cc
 from .. import devices
 from ..data import NO_VALUE, CindTable
-from ..obs import integrity, metrics
+from ..obs import datastats, integrity, metrics
 from ..ops import cooc, frequency, minimality, sketch
 from . import allatonce
 
@@ -338,6 +338,8 @@ def _prepare_dense(triples, min_support, projections, use_fc_filter, use_ars,
         n_captures=num_caps, total_pairs=0, max_line=int(lens_h.max()),
         pair_backend="matmul", dense_plan=plan.describe(),
         cooc_dtype=plan.dtype)
+    if stats is not None and datastats.enabled():
+        allatonce.publish_datastats(stats, lens_h, dep_count)
     # Past the product only the per-level line statistics read Mᵀ.
     dc = _DenseCooc(m_t if stats is not None else None, cooc_m, dep_count_d,
                     plan.c_pad, n_lines)

@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..obs import metrics
+from ..obs import datastats, metrics
 
 # Dep-tile width cap of the plan (the tile policy of the JAX package, kept so that
 # both packages plan identical shapes).
@@ -114,13 +114,15 @@ class DensePlan:
 
     def describe(self) -> dict:
         return {
-            "dtype": self.dtype,
+            "policy": "tile", "dtype": self.dtype,
             "l_real": self.n_lines, "l_pad": self.l_pad,
             "c_real": self.num_caps, "c_pad": self.c_pad,
             "tile": self.tile, "n_tiles": self.n_tiles,
             "n_tiles_skipped": self.n_tiles - len(self.dep_tile_starts),
             "line_block": self.line_block, "n_blocks": self.n_blocks,
             "issued_flops": self.issued_flops, "real_flops": self.real_flops,
+            "occupancy": round(self.real_flops / max(self.issued_flops, 1),
+                               4),
         }
 
 
@@ -425,6 +427,9 @@ def discover_pairs_dense(m_t, dep_count, cap_code, cap_v1, cap_v2,
                           n_blocks_skipped=n_blocks_skipped,
                           n_tiles_data_skipped=n_tiles_data_skipped,
                           n_launches=len(launches))
+    if stats is not None and datastats.enabled():
+        datastats.publish_block_skip(stats, n_blocks=plan.n_blocks,
+                                     n_blocks_skipped=n_blocks_skipped)
 
     cols, rows = sweep_operands(dep_count, cap_code, cap_v1, cap_v2,
                                 min_support)

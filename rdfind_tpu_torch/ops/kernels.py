@@ -36,6 +36,12 @@ CONTAINS_BLOCK_R = 64
 
 LAUNCHES = {"fused_cind_blocks": 0, "packed_contains_matrix": 0,
             "repeat_probe": 0, "pipeline_probe": 0}
+# The CUDA symbol of each wrapper's kernel (csrc/), as a profiler trace names
+# its device events.
+SYMBOLS = {"fused_cind_blocks": "fused_cind_kernel",
+           "packed_contains_matrix": "contains_kernel",
+           "repeat_probe": "repeat_probe_kernel",
+           "pipeline_probe": "pipeline_probe_kernel"}
 
 
 def reset_launches() -> None:

@@ -240,3 +240,64 @@ def merge_count_min(tables, cap: int = MAX_COUNT_MIN_CAP) -> torch.Tensor:
     for t in tables:
         acc += torch.as_tensor(t).to(device=acc.device, dtype=torch.int64)
     return acc.clamp_(max=cap).to(torch.int32)
+
+
+def kernel_selfcheck(n_rows: int = 1024, n_bits: int = 4096, device=None,
+                     num_hashes: int = DEFAULT_HASHES,
+                     repeats: int = 5) -> dict:
+    """K2 against its plain version on one synthetic case (the JAX package's
+    ``sketch.kernel_selfcheck`` inputs: Bloom rows of ``n_rows`` random dep
+    ids against ``n_rows`` random ref ids, from numpy seed 11).
+
+    Returns parity (kernel output equal to the plain version's), the hits and
+    a content hash of the output — equal to the JAX selfcheck's ``out_hash``
+    on the same arguments — and, on the card, the mean time per call of the
+    kernel's wrapper and of the plain version over `repeats` back-to-back
+    calls (CUDA events, host enqueue included) with their ratio.  On the CPU
+    the wrapper runs the plain version, so parity holds trivially and nothing
+    is timed.
+    """
+    import hashlib
+
+    import numpy as np
+
+    from .. import devices
+
+    dev = devices.resolve(device)
+    rng = np.random.default_rng(11)
+    dep_ids = torch.as_tensor(rng.integers(0, 1 << 30, n_rows,
+                                           dtype=np.int32)).to(dev)
+    ref_ids = torch.as_tensor(rng.integers(0, 1 << 30, n_rows,
+                                           dtype=np.int32)).to(dev)
+    every = torch.ones(n_rows, dtype=torch.bool, device=dev)
+    sketches = build_line_blooms(torch.arange(n_rows, device=dev), dep_ids,
+                                 every, num_lines=n_rows, bits=n_bits,
+                                 num_hashes=num_hashes)
+    ref_packed, popc = pack_ref_bits(ref_ids, bits=n_bits,
+                                     num_hashes=num_hashes)
+    dp = -n_rows % kernels.CONTAINS_BLOCK_D
+    rp = -n_rows % kernels.CONTAINS_BLOCK_R
+    args = (torch.nn.functional.pad(sketches, (0, 0, 0, dp)).contiguous(),
+            torch.nn.functional.pad(ref_packed, (0, 0, 0, rp)).contiguous(),
+            torch.nn.functional.pad(popc, (0, rp), value=-1).contiguous())
+    got = kernels.packed_contains_matrix(*args)[:n_rows, :n_rows]
+    want = kernels.packed_contains_matrix_plain(*args)[:n_rows, :n_rows]
+    out = got.cpu().numpy().astype(np.uint8)
+    result = {"parity": bool(torch.equal(got, want)), "n_rows": n_rows,
+              "bits": n_bits, "backend": dev.type, "hits": int(out.sum()),
+              "out_hash": hashlib.sha1(out.tobytes()).hexdigest()[:16]}
+    if dev.type == "cuda":
+        for key, fn in (("kernel_ms", kernels.packed_contains_matrix),
+                        ("plain_ms", kernels.packed_contains_matrix_plain)):
+            fn(*args)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+            start.record()
+            for _ in range(repeats):
+                fn(*args)
+            end.record()
+            torch.cuda.synchronize(dev)
+            result[key] = start.elapsed_time(end) / repeats
+        result["speedup"] = result["plain_ms"] / result["kernel_ms"]
+    return result

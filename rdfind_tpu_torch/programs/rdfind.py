@@ -2,10 +2,12 @@
 
 The argument surface is the JAX package's CLI on one device: the same flags, names,
 defaults and messages, small-to-large (1) the default strategy, native fused
-ingest the default read path.  Flags whose behaviour is built in are accepted for
-compatibility and noted when set.  The flags of the sharded pipeline and of the
-runtime planes (checkpoints, tracing, delta, collector) are rejected with a
-message naming them; none is silently ignored.
+ingest the default read path.  The runtime and observability flags
+(``--checkpoint-dir``, ``--trace``, ``--metrics-file``, ``--profile-dir``,
+``--collector``) work as in the JAX package.  Flags whose behaviour is built in
+are accepted for compatibility and noted when set.  The flags of the sharded
+pipeline, the preemption supervisor and the delta and serving planes are
+rejected with a message naming them; none is silently ignored.
 
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
         --output cinds.txt [--traversal-strategy 0|1|2|3] [--device cpu]
@@ -17,8 +19,10 @@ import argparse
 import sys
 
 STRATEGIES = (0, 1, 2, 3)
-_MESH = "the sharded multi-device pipeline (ROADMAP.md, queue 1)"
-_PLANES = "the runtime planes (ROADMAP.md, queue 1)"
+_MESH = "the sharded multi-device pipeline (ROADMAP.md, queue 1, item 2)"
+_SUPERVISOR = ("the preemption supervisor, which comes with the sharded "
+               "pipeline (ROADMAP.md, queue 1, item 2a)")
+_SERVING = "the delta and serving planes (ROADMAP.md, queue 1, item 1b)"
 # Flags of the JAX package's CLI whose machinery the port does not have yet,
 # rejected with a pointer to the work queue.
 UNPORTED = {
@@ -26,10 +30,9 @@ UNPORTED = {
     "--host-index": _MESH, "--sharded-ingest": _MESH, "--interning": _MESH,
     "--rebalance-strategy": _MESH, "--rebalance-max-load": _MESH,
     "--rebalance-threshold": _MESH, "--no-combinable-join": _MESH,
-    "--delta": _PLANES, "--delta-state": _PLANES, "--deletes": _PLANES,
-    "--collector": _PLANES, "--profile-dir": _PLANES, "--trace": _PLANES,
-    "--metrics-file": _PLANES, "--console-port": _PLANES,
-    "--checkpoint-dir": _PLANES, "--retry-on-preempt": _PLANES,
+    "--retry-on-preempt": _SUPERVISOR,
+    "--delta": _SERVING, "--delta-state": _SERVING, "--deletes": _SERVING,
+    "--console-port": _SERVING,
 }
 # Accepted for compatibility: behaviour built in or subsumed, noted when set.
 _NO_EFFECT = (
@@ -87,11 +90,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="association-rule output file")
     p.add_argument("--collect-result", action="store_true",
                    help="print CINDs to stdout")
+    p.add_argument("--collector", default=None, metavar="HOST:PORT",
+                   help="stream CINDs to a remote collector (JSON lines over "
+                        "TCP; the reference's RMI result channel)")
     p.add_argument("--debug-level", type=int, default=0,
                    help="1: phase timings; 2: + sanity checks (trivial-CIND "
                         "count); 3: + print every CIND")
     p.add_argument("--print-plan", action="store_true",
                    help="dump the logical plan as JSON before executing")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the run (host "
+                        "operators and, on the card, every kernel with its "
+                        "device time) as DIR/profile.json; open in Perfetto "
+                        "(ui.perfetto.dev) or chrome://tracing")
+    p.add_argument("--trace", default=None, metavar="DIR", dest="trace_dir",
+                   help="obs: record host span traces (run/stage/pass/"
+                        "dispatch/pull/exchange/checkpoint) + a heartbeat "
+                        "file into DIR; a merged Chrome-trace JSON "
+                        "(DIR/trace.json, per-host lanes) is written at run "
+                        "end — open in Perfetto (ui.perfetto.dev).  Pairs "
+                        "with --profile-dir: host spans emit matching "
+                        "torch.profiler.record_function ranges")
+    p.add_argument("--metrics-file", default=None, metavar="FILE",
+                   help="obs: write the metrics registry as Prometheus text "
+                        "exposition to FILE (atomically refreshed at every "
+                        "stage boundary and at run end)")
     p.add_argument("--counters", type=int, default=0, dest="counter_level")
     for flag in ("--find-frequent-captures", "--no-bulk-merge",
                  "--rebalance-join", "--apply-hash",
@@ -130,6 +153,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="regex on input-file basenames")
     p.add_argument("--no-native-ingest", action="store_true",
                    help="force the pure-Python ingest path")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="directory for stage-boundary checkpoints (ingest and "
+                        "discover); re-runs with unchanged inputs/flags "
+                        "resume from them.  Fault-tolerance knobs ride the "
+                        "environment: RDFIND_STRICT=1 fail-fast, "
+                        "RDFIND_FAULTS=... deterministic fault injection "
+                        "(see README, 'Fault tolerance & resume')")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where to run (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
@@ -180,6 +210,11 @@ def main(argv=None) -> int:
         merge_window_size=args.merge_window_size,
         find_only_fcs=args.find_only_fcs,
         create_join_histogram=args.create_join_histogram,
+        checkpoint_dir=args.checkpoint_dir,
+        profile_dir=args.profile_dir,
+        collector=args.collector,
+        trace_dir=args.trace_dir,
+        metrics_file=args.metrics_file,
         device=args.device,
     )
     for name, why in _NO_EFFECT:

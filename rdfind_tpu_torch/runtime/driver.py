@@ -6,15 +6,27 @@ and per-file encodings, ``--distinct-triples``, the early stops (``--only-read``
 ``--do-only-join``, ``--find-only-fcs``), the join-size histogram, the four
 strategies on one device, and the sinks and reports in the JAX package's formats
 (sorted ``Cind.pretty()`` output lines, association-rule lines, ``--counters`` and
-timing lines, ``--print-plan`` JSON).  The sharded path, the runtime planes
-(checkpoints, supervisor, collector, certificates, delta, tracing) are not here.
+timing lines, ``--print-plan`` JSON).
+
+The runtime and observability planes run here as in the JAX package: each stage
+is a tracer span with a ``stage_<name>_ms`` histogram, a memory watermark and an
+exposition flush (``--trace``, ``--metrics-file``); ``--checkpoint-dir`` keeps
+the ingest and discover stages (``resume-*`` / ``checkpoint-*`` phases, a failed
+write counted in ``checkpoint-errors``); ``--collector`` streams the CINDs to a
+remote sink; the integrity plane writes the run certificate (``RDFIND_CERT``);
+``--profile-dir`` wraps the run in ``torch.profiler``.  The sharded path, its
+preemption supervisor and the delta and serving planes are not here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
+import signal
 import sys
+import threading
 import time
 
 import numpy as np
@@ -26,9 +38,11 @@ from ..data import CindTable
 from ..dictionary import Dictionary, intern_triples
 from ..io import native, ntriples, prefixes, reader
 from ..models import allatonce, approximate, late_bb, small_to_large
-from ..obs import metrics, report
+from ..obs import memory as obs_memory
+from ..obs import flightrec, integrity, metrics, report, tracer
 from ..ops import frequency, segments
 from ..ops.emission import emit_join_candidates
+from . import checkpoint
 
 # Strategy ids follow the reference: 0 = all-at-once, 1 = small-to-large,
 # 2 = approximate all-at-once, 3 = late-BB.
@@ -68,6 +82,11 @@ class Config:
     merge_window_size: int = -1  # pairs per chunk of the chunked backend
     find_only_fcs: int = 0  # >= 1: stop after frequent-condition mining
     create_join_histogram: bool = False  # print join-line size histogram
+    checkpoint_dir: str | None = None  # stage-boundary checkpoints (resume)
+    profile_dir: str | None = None  # torch.profiler trace of the whole run
+    collector: str | None = None  # "host:port" remote result sink
+    trace_dir: str | None = None  # obs: host span trace + heartbeat directory
+    metrics_file: str | None = None  # obs: Prometheus text exposition file
     device: str | None = None  # None: the CUDA card
 
 
@@ -86,8 +105,17 @@ class _Phases:
 
     def run(self, name, fn):
         t0 = time.perf_counter()
-        out = fn()
+        # Registry-only position gauge (never written into a stats dict).
+        metrics.gauge_set(None, "run_stage", name)
+        with tracer.span(name, cat=tracer.CAT_STAGE):
+            out = fn()
         self.timings[name] = time.perf_counter() - t0
+        metrics.observe(f"stage_{name}_ms", self.timings[name] * 1e3)
+        if tracer.enabled() or metrics.export_requested():
+            # Stage-boundary memory watermark and a fresh exposition
+            # snapshot, so a scraper sees progress mid-run.
+            obs_memory.sample(None, label=f"stage {name}")
+            metrics.flush_export()
         return out
 
 
@@ -215,6 +243,8 @@ def describe_plan(cfg: Config) -> dict:
         sinks.append(f"write-output -> {cfg.output_file}")
     if cfg.ar_output_file:
         sinks.append(f"write-ar-output -> {cfg.ar_output_file}")
+    if cfg.collector:
+        sinks.append(f"collect-remote -> {cfg.collector}")
     if cfg.collect_result:
         sinks.append("collect-result (stdout)")
     return {
@@ -251,10 +281,10 @@ def _trivial_cind_mask(table: CindTable) -> np.ndarray:
     return same_proj & sub & v_ok
 
 
-def _ingest(cfg: Config, phases: _Phases, counters: dict, stats: dict):
-    """(ids, dictionary), or None after an --only-read report.  Native fused
-    ingest whenever no option needs the raw tokens and the input is UTF-8;
-    counters["ingest-path"] says which ran."""
+def _native_ingest(cfg: Config) -> bool:
+    """Whether this run reads through the native fused ingest: whenever no
+    option needs the raw tokens, the input is UTF-8 and the library builds
+    (a note on stderr says when it does not)."""
     wants_native = (cfg.native_ingest and not cfg.asciify_triples
                     and not cfg.prefix_paths and not cfg.only_read
                     and reader.is_utf8(cfg.encoding))
@@ -263,6 +293,13 @@ def _ingest(cfg: Config, phases: _Phases, counters: dict, stats: dict):
         print(f"note: native ingest unavailable "
               f"({native.unavailable_reason()}); using the Python ingest",
               file=sys.stderr)
+    return use_native
+
+
+def _ingest(cfg: Config, use_native: bool, phases: _Phases, counters: dict,
+            stats: dict):
+    """(ids, dictionary), or None after an --only-read report.
+    counters["ingest-path"] says which ingest ran."""
     counters["ingest-path"] = "native" if use_native else "python"
     if use_native:
         paths, is_nq = _resolve_inputs(cfg)
@@ -285,6 +322,55 @@ def _ingest(cfg: Config, phases: _Phases, counters: dict, stats: dict):
         ids = phases.run("distinct", lambda: np.unique(ids, axis=0))
         counters["distinct-triples"] = ids.shape[0]
     return ids, dictionary
+
+
+def _checkpoint_payloads(cfg: Config, use_native: bool):
+    """(ingest_payload, discover_payload): everything feeding each stage, key
+    for key the JAX driver's, so both packages fingerprint a run alike."""
+    paths, is_nq = _resolve_inputs(cfg)
+    ingest_payload = dict(
+        inputs=checkpoint.input_signature(paths), is_nq=is_nq, tabs=cfg.tabs,
+        asciify=cfg.asciify_triples, encoding=cfg.encoding,
+        prefixes=(checkpoint.input_signature(
+            reader.resolve_path_patterns(cfg.prefix_paths))
+            if cfg.prefix_paths else []),
+        distinct=cfg.distinct_triples,
+        # The two ingest implementations agree on valid UTF-8 but may differ
+        # on degenerate inputs: a checkpoint from one must not satisfy a run
+        # asking for the other.
+        native=use_native)
+    discover_payload = dict(
+        ingest=ingest_payload, min_support=cfg.min_support,
+        strategy=cfg.traversal_strategy, projections=cfg.projections,
+        use_fis=cfg.use_frequent_item_set, use_ars=cfg.use_association_rules,
+        clean_implied=cfg.clean_implied)
+    if _half_approx_active(cfg):
+        # Only knobs that reach the strategy: a no-effect flag must not
+        # invalidate an identical-output checkpoint.
+        discover_payload.update(explicit_threshold=cfg.explicit_threshold,
+                                sbf_bits=cfg.sbf_bits)
+    # balanced_11 and the chunk budget are output-neutral: not fingerprinted.
+    return ingest_payload, discover_payload
+
+
+def _checkpoint_fps(cfg: Config, use_native: bool):
+    """(ingest_fp, discover_fp): digests of everything feeding each stage."""
+    ingest_payload, discover_payload = _checkpoint_payloads(cfg, use_native)
+    return (checkpoint.fingerprint(ingest_payload),
+            checkpoint.fingerprint(discover_payload))
+
+
+def _safe_save(ckpt: checkpoint.CheckpointStore, stage: str, fp: str,
+               arrays: dict, counters: dict) -> None:
+    """A failed checkpoint write never fails an otherwise complete run: it
+    only costs the next run its resume (counted and warned, never raised)."""
+    try:
+        ckpt.save(stage, fp, arrays)
+    except Exception as e:
+        counters["checkpoint-errors"] = counters.get("checkpoint-errors",
+                                                     0) + 1
+        print(f"warning: checkpoint stage {stage} not written ({e}); "
+              f"the next run will recompute it", file=sys.stderr)
 
 
 def _ingest_counters(counters: dict, ingest_stats: dict) -> None:
@@ -340,6 +426,107 @@ def _discover(cfg: Config, ids, dev, stats: dict) -> CindTable:
 
 
 def run(cfg: Config) -> RunResult:
+    with _obs_session(cfg):
+        with _flush_progress_on_signal(bool(cfg.checkpoint_dir)):
+            with tracer.span("run", cat=tracer.CAT_RUN,
+                             strategy=cfg.traversal_strategy, n_devices=1,
+                             attempt=0):
+                return _run_profiled(cfg)
+
+
+@contextlib.contextmanager
+def _flush_progress_on_signal(enabled: bool):
+    """SIGTERM/SIGINT flush every live ProgressStore before the process dies
+    and, when the flight recorder is armed, dump its ring.  Installed only on
+    the main thread and only when there is work to do; the previous handlers
+    are restored on exit and re-invoked after the flush."""
+    if ((not enabled and not flightrec.enabled())
+            or threading.current_thread() is not threading.main_thread()):
+        yield
+        return
+    installed = {}
+
+    def handler(signum, frame):
+        flightrec.dump(reason=f"signal {signum}")
+        if enabled:
+            checkpoint.flush_all_progress()
+        signal.signal(signum, installed[signum])
+        if signum == signal.SIGINT:
+            raise KeyboardInterrupt
+        os.kill(os.getpid(), signum)  # re-deliver to the restored handler
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            installed[sig] = signal.signal(sig, handler)
+        except (ValueError, OSError):
+            pass
+    try:
+        yield
+    finally:
+        for sig, prev in installed.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, OSError):
+                pass
+
+
+@contextlib.contextmanager
+def _obs_session(cfg: Config):
+    """Arm the obs layer for one run — span tracing and heartbeat when
+    --trace/RDFIND_TRACE names a directory, Prometheus exposition when
+    --metrics-file/RDFIND_METRICS_FILE names a file — and tear it down,
+    exporting the merged Chrome trace, however the run ends.  With no knob
+    set the run pays only the disabled-path checks."""
+    trace_dir = cfg.trace_dir or os.environ.get("RDFIND_TRACE") or None
+    metrics_file = (cfg.metrics_file
+                    or os.environ.get("RDFIND_METRICS_FILE") or None)
+    obs_memory.reset()
+    flightrec.configure()  # re-read RDFIND_FLIGHTREC at every run start
+    flightrec.reset()
+    if metrics_file:
+        metrics.set_export(metrics_file)
+    if trace_dir:
+        tracer.start(trace_dir)
+    try:
+        yield
+    finally:
+        if metrics_file:
+            try:
+                metrics.flush_export()
+            finally:
+                metrics.set_export(None)
+        if trace_dir:
+            tracer.stop()
+            try:
+                report.export_chrome_trace(trace_dir)
+            except OSError as e:
+                print(f"warning: trace export failed ({e}); the raw "
+                      f"event files remain in {trace_dir}", file=sys.stderr)
+
+
+PROFILE_FILE = "profile.json"
+
+
+def _run_profiled(cfg: Config) -> RunResult:
+    """--profile-dir: the whole run under torch.profiler (host activity, and
+    the card's when the run computes on one), written as a Chrome trace
+    ``profile.json`` into the directory; the tracer's spans appear in it as
+    ``record_function`` ranges of the same names."""
+    if not cfg.profile_dir:
+        return _run(cfg)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if devices.resolve(cfg.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(cfg.profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        out = _run(cfg)
+    prof.export_chrome_trace(os.path.join(cfg.profile_dir, PROFILE_FILE))
+    return out
+
+
+def _run(cfg: Config) -> RunResult:
     phases = _Phases()
     counters: dict = {}
     stats: dict = {}
@@ -347,12 +534,40 @@ def run(cfg: Config) -> RunResult:
 
     if cfg.print_plan:
         print(json.dumps(describe_plan(cfg), indent=2))
+    tracer.set_status(mode="full")
 
-    ingested = _ingest(cfg, phases, counters, stats)
-    if ingested is None:  # --only-read
-        _report(cfg, counters, phases.timings)
-        return RunResult(CindTable.empty(), None, None, counters,
-                         phases.timings)
+    use_native = _native_ingest(cfg)
+    ckpt = ingest_fp = discover_fp = None
+    if cfg.checkpoint_dir and not cfg.only_read:
+        ckpt = checkpoint.CheckpointStore(cfg.checkpoint_dir)
+        ingest_fp, discover_fp = _checkpoint_fps(cfg, use_native)
+
+    ingested = None
+    if ckpt is not None:
+        stored = ckpt.load("ingest", ingest_fp)
+        if stored is not None:
+            ingested = phases.run(
+                "resume-ingest", lambda: checkpoint.decode_ingest(stored))
+            counters["input-triples"] = int(stored["input_triples"])
+            if "distinct_triples" in stored:
+                counters["distinct-triples"] = int(stored["distinct_triples"])
+            counters["resumed-ingest"] = 1
+    if ingested is None:
+        ingested = _ingest(cfg, use_native, phases, counters, stats)
+        if ingested is None:  # --only-read
+            _report(cfg, counters, phases.timings)
+            return RunResult(CindTable.empty(), None, None, counters,
+                             phases.timings)
+        if ckpt is not None:
+            def save_ingest():
+                arrays = checkpoint.encode_ingest(*ingested)
+                # Counter state rides along so resumed runs report alike.
+                arrays["input_triples"] = np.int64(counters["input-triples"])
+                if "distinct-triples" in counters:
+                    arrays["distinct_triples"] = np.int64(
+                        counters["distinct-triples"])
+                _safe_save(ckpt, "ingest", ingest_fp, arrays, counters)
+            phases.run("checkpoint-ingest", save_ingest)
     ids, dictionary = ingested
     counters["distinct-values"] = len(dictionary)
 
@@ -381,7 +596,23 @@ def run(cfg: Config) -> RunResult:
         print("note: --use-ars has no effect without --use-fis "
               "(association rules are mined from the frequent-item sets)",
               file=sys.stderr)
-    table = phases.run("discover", lambda: _discover(cfg, ids, dev, stats))
+    table = None
+    if ckpt is not None:
+        stored = ckpt.load("discover", discover_fp)
+        if stored is not None:
+            table = phases.run("resume-discover",
+                               lambda: checkpoint.decode_cinds(stored))
+            metrics.restore(stats, checkpoint.decode_stats(stored))
+            counters["resumed-discover"] = 1
+    if table is None:
+        table = phases.run("discover",
+                           lambda: _discover(cfg, ids, dev, stats))
+        if ckpt is not None:
+            def save_discover():
+                arrays = checkpoint.encode_cinds(table)
+                arrays.update(checkpoint.encode_stats(stats))
+                _safe_save(ckpt, "discover", discover_fp, arrays, counters)
+            phases.run("checkpoint-discover", save_discover)
     counters["cind-counter"] = len(table)
     counters.update({f"stat-{k}": v for k, v in stats.items()})
     _emit_sinks(cfg, phases, counters, table, dictionary, stats, ids, dev)
@@ -432,9 +663,58 @@ def _emit_sinks(cfg: Config, phases: _Phases, counters: dict, table,
     if cfg.output_file:
         phases.run("write-output",
                    lambda: write_output(cfg.output_file, table, dictionary))
+    if cfg.collector:
+        phases.run("collect-remote",
+                   lambda: _send_remote(cfg, table, dictionary, counters))
     if cfg.collect_result or cfg.debug_level >= 3:
         for c in table.decoded(dictionary):
             print(c.pretty())
+
+    if integrity.enabled():
+        # Fold the counters into stats["integrity"] and, when a destination
+        # (RDFIND_CERT or a live trace dir) is set, write the run certificate:
+        # input signature -> stage digests -> output digest.
+        summary = integrity.summarize(stats)
+        stages = dict(stats.get("integrity_stages") or {})
+        stages.setdefault("output", integrity.digest_hex(
+            *integrity.digest_table(table)))
+        counters["output-digest"] = stages["output"]
+        dest = integrity.certificate_path()
+        if dest:
+            def write_cert():
+                from ..obs import sentinel
+                paths, _ = _resolve_inputs(cfg)
+                cert = integrity.run_certificate(
+                    input_signature=checkpoint.input_signature(paths),
+                    stages=stages, output_digest=stages["output"],
+                    provenance=sentinel.provenance(),
+                    extra={"summary": summary, "n_cinds": len(table)})
+                integrity.write_certificate(dest, cert)
+            phases.run("write-certificate", write_cert)
+
+
+def _send_remote(cfg: Config, table, dictionary, counters: dict) -> None:
+    """Stream the CINDs to the --collector sink.  A dead collector never
+    fails an otherwise complete run: the results are already computed (and
+    perhaps written to --output); it is counted in collector-errors."""
+    from .collector import RemoteSink
+    try:
+        # Only the sink's construction is shielded (ValueError: a malformed
+        # host:port), so a decoding bug in the results still fails loudly.
+        sink = RemoteSink(cfg.collector)
+    except (OSError, ValueError) as e:
+        counters["collector-errors"] = 1
+        print(f"warning: remote collector {cfg.collector} unreachable ({e}); "
+              f"results NOT streamed", file=sys.stderr)
+        return
+    try:
+        with sink:
+            for c in table.decoded(dictionary):
+                sink.send_cind(c.pretty())
+    except OSError as e:  # stream dropped mid-send
+        counters["collector-errors"] = 1
+        print(f"warning: remote collector {cfg.collector} dropped the stream "
+              f"({e}); results may be truncated", file=sys.stderr)
 
 
 def _report(cfg: Config, counters: dict, timings: dict) -> None:

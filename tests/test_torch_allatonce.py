@@ -44,7 +44,8 @@ FILTERS = [(False, False), (True, False), (True, True)]
 @pytest.mark.parametrize("clean_implied", [False, True])
 @pytest.mark.parametrize("fc,ars", FILTERS)
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
-def test_strategy0_matches_jax(workload, fc, ars, clean_implied):
+def test_strategy0_matches_jax(workload, fc, ars, clean_implied, monkeypatch):
+    monkeypatch.setenv("RDFIND_INTEGRITY", "1")  # publish the output stage
     make, min_support = WORKLOADS[workload]
     triples = make()
     kw = dict(use_frequent_condition_filter=fc, use_association_rules=ars,

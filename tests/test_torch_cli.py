@@ -1,7 +1,8 @@
 """The port's CLI against the JAX package's: byte-identical output files for the
 same input and flags, the same association-rule files, standard output (plan JSON,
-histogram lines, collected CINDs) and counter lines, and every flag of the
-sharded pipeline or the runtime planes rejected by name."""
+histogram lines, collected CINDs) and counter lines, the runtime and
+observability flags accepted, and every flag of the sharded pipeline, the
+preemption supervisor and the delta and serving planes rejected by name."""
 
 import gzip
 import json
@@ -109,12 +110,7 @@ def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
     (["--delta", "bundle"], "--delta"),
     (["--delta-state", "bundle"], "--delta-state"),
     (["--deletes", "d.nt"], "--deletes"),
-    (["--collector", "127.0.0.1:1"], "--collector"),
-    (["--profile-dir", "prof"], "--profile-dir"),
-    (["--trace", "trace"], "--trace"),
-    (["--metrics-file", "m.prom"], "--metrics-file"),
     (["--console-port", "0"], "--console-port"),
-    (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--retry-on-preempt", "2"], "--retry-on-preempt"),
     (["--traversal-strategy", "0", "--projection", "x"], "--projection"),
 ])
@@ -123,6 +119,52 @@ def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
         tcli.main([nt_file, *argv, "--device", "cpu"])
     assert exc.value.code == 2
     assert needle in capsys.readouterr().err
+
+
+def test_unported_holds_exactly_the_fifteen_flags():
+    assert sorted(tcli.UNPORTED) == sorted([
+        "--dop", "--coordinator", "--num-hosts", "--host-index",
+        "--sharded-ingest", "--interning", "--rebalance-strategy",
+        "--rebalance-max-load", "--rebalance-threshold",
+        "--no-combinable-join", "--retry-on-preempt", "--delta",
+        "--delta-state", "--deletes", "--console-port"])
+    assert all("ROADMAP.md, queue 1, item" in why
+               for why in tcli.UNPORTED.values())
+
+
+@pytest.mark.parametrize("flag", ["--checkpoint-dir", "--trace",
+                                  "--metrics-file", "--profile-dir",
+                                  "--collector"])
+def test_plane_flags_are_accepted(flag):
+    args = tcli.build_parser().parse_args(["d.nt", flag, "x"])
+    dest = {"--trace": "trace_dir"}.get(flag, flag[2:].replace("-", "_"))
+    assert getattr(args, dest) == "x"
+    assert flag not in tcli.UNPORTED
+    jhelp = {a.option_strings[0]: a.help
+             for a in jcli.build_parser()._actions if a.option_strings}
+    thelp = {a.option_strings[0]: a.help
+             for a in tcli.build_parser()._actions if a.option_strings}
+    # The JAX package's help texts where they do not name JAX machinery (its
+    # XLA profiler, TraceAnnotations, per-pass sharded checkpoints).
+    if flag in ("--collector", "--metrics-file"):
+        assert thelp[flag] == jhelp[flag]
+    elif flag == "--trace":
+        assert thelp[flag].split("Pairs")[0] == jhelp[flag].split("Pairs")[0]
+
+
+def test_profile_dir_on_the_cpu_writes_a_loadable_trace(nt_file, tmp_path,
+                                                        capsys):
+    prof = tmp_path / "prof"
+    assert tcli.main([nt_file, "--support", "3", "--traversal-strategy", "0",
+                      "--device", "cpu", "--profile-dir", str(prof),
+                      "--trace", str(tmp_path / "trace")]) == 0
+    capsys.readouterr()
+    events = json.load(open(prof / "profile.json"))["traceEvents"]
+    names = {e.get("name") for e in events}
+    # The tracer's stage spans appear as profiler ranges of the same names.
+    assert {"read+parse", "discover", "write-certificate"} <= names
+    assert any(str(n).startswith("rdfind.") for n in names)
+    assert not any(e.get("cat") == "kernel" for e in events)
 
 
 # Counter and debug lines that differ between two runs of one package (times,

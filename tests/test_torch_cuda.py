@@ -420,3 +420,53 @@ def test_native_ingest_then_upload(cuda, tmp_path):
     got = rdfind_tpu_torch.discover(on_card, 3, strategy=1, device=cuda)
     want = rdfind_tpu_torch.discover(ids, 3, strategy=1, device="cpu")
     assert len(want) > 0 and got.to_rows() == want.to_rows()
+
+
+def test_memory_sample_equals_the_allocator_peak(cuda):
+    from rdfind_tpu_torch.obs import memory as obs_memory
+
+    obs_memory.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    x = torch.ones((1 << 20,), dtype=torch.int32, device=cuda)
+    del x
+    stats = {}
+    rec = obs_memory.sample(stats, label="stage test")
+    assert rec == stats["hbm"]
+    assert rec["peak_bytes"] == torch.cuda.max_memory_allocated()
+    assert rec["in_use_bytes"] == torch.cuda.memory_allocated()
+    assert rec["limit_bytes"] == torch.cuda.mem_get_info()[1]
+    assert rec["peak_bytes"] >= 4 << 20 and 0 <= rec["frac"] < 1
+
+
+@pytest.mark.parametrize("strategy", ["0", "2"])
+def test_profile_dir_trace_holds_each_kernel_launch(cuda, tmp_path, strategy):
+    """--profile-dir on the card: the trace has one device event of each
+    kernel's symbol per launch the wrappers counted."""
+    from rdfind_tpu_torch.obs import report
+    from rdfind_tpu_torch.programs import rdfind as tcli
+
+    triples = synth.generate_triples(3000, seed=5)
+    path = tmp_path / "d.nt"
+    path.write_text("".join(f"<e{s}> <e{p}> <e{o}> .\n" for s, p, o in triples))
+    kernels.reset_contains_check()
+    kernels.reset_launches()
+    assert tcli.main([str(path), "--support", "3", "--traversal-strategy",
+                      strategy, "--profile-dir", str(tmp_path / "prof"),
+                      "--output", str(tmp_path / "out.txt")]) == 0
+    launches = dict(kernels.LAUNCHES)
+    counts = report.profile_kernel_counts(
+        str(tmp_path / "prof" / "profile.json"), kernels.SYMBOLS)
+    on_path = (["fused_cind_blocks"] if strategy == "0" else
+               ["packed_contains_matrix", "repeat_probe", "pipeline_probe"])
+    for name in on_path:
+        assert launches[name] > 0, name
+    assert counts == launches
+
+
+def test_kernel_selfcheck_parity_on_the_card(cuda):
+    got = sketch.kernel_selfcheck(n_rows=1024, n_bits=4096, device=cuda)
+    want = sketch.kernel_selfcheck(n_rows=1024, n_bits=4096, device="cpu")
+    assert got["parity"] and got["backend"] == "cuda"
+    assert got["out_hash"] == want["out_hash"]
+    assert got["kernel_ms"] > 0 and got["plain_ms"] > 0

@@ -197,9 +197,10 @@ def test_empty_and_tiny(backend):
 
 @pytest.mark.parametrize("fc", [True, False])
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_stats_match_jax_on_synth_triples(backend, fc):
+def test_stats_match_jax_on_synth_triples(backend, fc, monkeypatch):
     """A synth workload through the public entry point: every lattice count,
     and fewer pairs checked than AllAtOnce's full quadratic."""
+    monkeypatch.setenv("RDFIND_INTEGRITY", "1")  # publish the output stage
     triples = synth.generate_triples(600, seed=5, n_predicates=7,
                                      n_entities=60)
     got, stats = both(triples, 3, pair_backend=backend,
