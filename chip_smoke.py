@@ -66,15 +66,43 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    metrics and the certificate on, beside the plain ``cli`` row (the planes'
    cost), and its stage-boundary ``hbm`` record against
    ``torch.cuda.max_memory_allocated``;
-12. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+12. ``delta``: incremental discovery through the CLI on the card.  The
+   headline file as a base bundle (``--delta-state``, strategy 1), a 1 % batch
+   (``synth.grow_delta_batches``, 2,000 changes) through ``--delta ...
+   --deletes ...``: the full-fallback path, K1 launched, output byte-identical
+   to a from-scratch CLI run (itself run with ``--console-port 0`` and scraped
+   at ``/progress`` and ``/metrics``), certificate chained onto the base's;
+   the same batch at strategy 0 with ``--use-fis`` on a copy of that base.
+   Strategies 2 and 3 on a 20,000-triple input in-process through
+   ``driver.run`` (one bundle, full fallback, K2 launched).  The real-size
+   workload with ``--projection so`` and a 0.01 % batch (200 changes): the
+   incremental path with passes reused, byte-identical output, the
+   certificate chained and the new bundle reloading with no degradation.  The
+   same batch with ``--projection spo`` once, in a subprocess under a wall
+   cap: whether the incremental re-intersection finishes, and where it was;
+13. ``serve``: ``programs.serve`` in a subprocess on the headline bundle:
+   1,000 sampled CINDs answered true with their support, 1,000 non-CINDs
+   false, unknown values and captures as misses, top-k equal to the table's;
+   then a strategy-0 ``--use-fis`` delta generation that undoes the batch
+   (full fallback, K1 launched, output byte-identical to the strategy-0
+   golden) while a thread keeps querying: the hot swap drops no query,
+   ``/status`` shows the chain, ``/metrics`` and ``/slo`` answer, the new
+   answers equal the new table; SIGTERM dumps the slow-query ring.  Index
+   open, verify and swap times, and the server's p50/p99 query latency;
+14. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
    The kernel phase also times an empty launch (``launch_floor``), the
    practical floor under the probes P1 and P2.
+
+To stay within its time, the script runs the unfiltered strategy-1 walk, the
+forced chunked backend and the half-approximate round once each (the main
+paths on the two filtered workloads take the median of 3).
 
 Any mismatch raises, so the script exits non-zero without the last line.
 """
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import gzip
 import hashlib
@@ -85,7 +113,11 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -93,13 +125,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import rdfind_tpu_torch  # noqa: E402
+from rdfind_tpu_torch import conditions  # noqa: E402
 from rdfind_tpu_torch.dictionary import Dictionary, intern_triples  # noqa: E402
 from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
-from rdfind_tpu_torch.obs import integrity, metrics, report  # noqa: E402
+from rdfind_tpu_torch.obs import console, integrity, metrics, report  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
 from rdfind_tpu_torch.programs import rdfind as cli  # noqa: E402
-from rdfind_tpu_torch.runtime import faults  # noqa: E402
+from rdfind_tpu_torch.runtime import delta, driver, faults, serving  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet), at a 700 W limit.
@@ -745,8 +778,12 @@ def profile_main_path(name, triples, support, device, strategy: int,
 
 def terms_of(triples) -> np.ndarray:
     """The IRI ``<e{id}>`` of every id up to the largest in `triples`."""
-    return np.array([f"<e{i}>" for i in range(int(np.max(triples)) + 1)],
-                    dtype=object)
+    return terms_upto(int(np.max(triples)) + 1)
+
+
+def terms_upto(n: int) -> np.ndarray:
+    """The IRI ``<e{id}>`` of every id below n."""
+    return np.array([f"<e{i}>" for i in range(n)], dtype=object)
 
 
 def write_inputs(triples) -> dict:
@@ -917,6 +954,21 @@ def environ(**kv):
         faults.reset()
 
 
+def parse_report(text: str) -> tuple:
+    """(counters, phases) from a --counters 1 report; stat-delta is a dict."""
+    counters, phases = {}, {}
+    for ln in text.splitlines():
+        m = re.match(r"phase (.+): ([0-9.]+) ms$", ln)
+        if m:
+            phases[m.group(1)] = float(m.group(2)) / 1e3
+        elif ": " in ln:
+            k, v = ln.split(": ", 1)
+            counters[k] = v
+    if "stat-delta" in counters:
+        counters["stat-delta"] = ast.literal_eval(counters["stat-delta"])
+    return counters, phases
+
+
 def plane_cli(label, argv, want_lines, **env) -> dict:
     """One in-process CLI run with ``--counters 1`` under `env`: rc 0 and its
     output file equal to `want_lines`, or raise.  Returns its wall, counters,
@@ -929,14 +981,7 @@ def plane_cli(label, argv, want_lines, **env) -> dict:
         with contextlib.redirect_stderr(err):
             rc = cli.main([*argv, "--output", out, "--counters", "1"])
         wall = time.perf_counter() - t0
-    counters, phases = {}, {}
-    for ln in err.getvalue().splitlines():
-        m = re.match(r"phase (.+): ([0-9.]+) ms$", ln)
-        if m:
-            phases[m.group(1)] = float(m.group(2)) / 1e3
-        elif ": " in ln:
-            k, v = ln.split(": ", 1)
-            counters[k] = v
+    counters, phases = parse_report(err.getvalue())
     with open(out) as f:
         got = f.read().splitlines()
     if rc != 0 or got != want_lines:
@@ -1107,7 +1152,614 @@ def run_planes_phase(triples, paths, device, s1_lines, cli_row) -> list:
                      max_memory_allocated=peak))
     for row in rows:
         emit(row)
+    return rows, s0_lines
+
+
+# ---------------------------------------------------------------------------
+# Incremental discovery and the serving process.
+# ---------------------------------------------------------------------------
+
+# Change batches (synth.grow_delta_batches, seed 4): 1 % of the headline is
+# 2,000 changes, 0.01 % of the real-size workload 200.
+HEADLINE_DELTA_FRAC = 0.01
+REAL_SIZE_DELTA_FRAC = 0.0001
+SMALL_DELTA_TRIPLES = 20_000
+# Wall cap of the --projection spo delta run on the real-size workload.
+SPO_CAP_S = 60
+# Queries of the serve phase.
+N_HOLD_QUERIES = 1000
+N_REFERENCED_QUERIES = 200
+
+
+def write_nt(path, triples, terms) -> None:
+    rows = terms[np.asarray(triples, np.int64)]
+    with open(path, "w") as f:
+        f.write("".join(f"{s} {p} {o} .\n" for s, p, o in rows))
+
+
+def read_bytes(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+class Scraper:
+    """A thread that GETs /progress and /metrics from the in-process run
+    console while it is up; `codes` holds every answer's status."""
+
+    def __init__(self):
+        self.codes = {"/progress": [], "/metrics": []}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            port = console.port()
+            if port is not None:
+                for route in self.codes:
+                    try:
+                        with urllib.request.urlopen(
+                                f"http://127.0.0.1:{port}{route}",
+                                timeout=10) as r:
+                            r.read()
+                            self.codes[route].append(r.status)
+                    except OSError as e:
+                        self.codes[route].append(repr(e))
+            self._stop.wait(0.5)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        if self._thread.is_alive():
+            raise AssertionError("console scraper did not stop")
+        return False
+
+
+def delta_cli(label, argv, scrape: bool = False, **env) -> dict:
+    """One in-process CLI run with ``--counters 1`` under `env`, the kernel
+    launch counts set to 0 just before it; rc 0 or raise."""
+    err = io.StringIO()
+    metrics.reset()
+    kernels.reset_contains_check()
+    kernels.reset_launches()
+    scraper = Scraper() if scrape else contextlib.nullcontext()
+    with environ(**env), scraper:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main([*argv, "--counters", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"delta {label}: rc {rc}\n{err.getvalue()[-3000:]}")
+    counters, phases = parse_report(err.getvalue())
+    out = dict(wall_s=wall, counters=counters, phases_s=phases,
+               launches=dict(kernels.LAUNCHES))
+    if scrape:
+        out["scrapes"] = scraper.codes
+    return out
+
+
+def delta_row(run, base, dl, **extra) -> dict:
+    """The printed row of one delta run: its wall beside the base run's, its
+    path and the dirtiness and reuse figures of stat-delta."""
+    st = dl["counters"]["stat-delta"]
+    return dict(phase="delta", run=run, path=st["path"], wall_s=dl["wall_s"],
+                base_wall_s=base["wall_s"] if base else None,
+                wall_vs_base=(base["wall_s"] / dl["wall_s"]) if base else None,
+                speedup_vs_base=st.get("speedup_vs_base"),
+                dirty_row_frac=st["dirty_row_frac"],
+                dirty_lines=st["dirty_lines"],
+                affected_captures=st["affected_captures"],
+                passes_rerun=st["passes_rerun"],
+                passes_reused=st["passes_reused"], inserts=st["inserts"],
+                deletes=st["deletes"], new_values=st["new_values"],
+                delta_phases_s={k: v for k, v in dl["phases_s"].items()},
+                launches=dl["launches"], **extra)
+
+
+def check_chain(label, cert0, cert1) -> dict:
+    with open(cert0) as f:
+        base = json.load(f)
+    with open(cert1) as f:
+        got = json.load(f)
+    if got.get("base_output_digest") != base["output_digest"] or \
+            got.get("generation") != 1:
+        raise AssertionError(f"delta {label}: certificate chain "
+                             f"{got.get('base_output_digest')} -> base "
+                             f"{base['output_digest']}, generation "
+                             f"{got.get('generation')}")
+    return dict(base_output_digest=got["base_output_digest"],
+                output_digest=got["output_digest"])
+
+
+def run_headline_delta(headline, paths, root) -> dict:
+    """The headline file as a strategy-1 base bundle, a 1 % batch through the
+    CLI, the from-scratch CLI run on the updated file (console scraped); then
+    the same batch at strategy 0 with --use-fis on a copy of generation 0 (a
+    bundle holds the full definitional set, whichever strategy wrote it)."""
+    ins, dels = synth.grow_delta_batches(headline, HEADLINE_DELTA_FRAC, seed=4)
+    upd = synth.apply_delta(headline, ins, dels)
+    terms = terms_upto(int(max(headline.max(), ins.max())) + 1)
+    f = {k: os.path.join(root, f"headline_{k}.nt") for k in ("ins", "del",
+                                                            "upd")}
+    write_nt(f["ins"], ins, terms)
+    write_nt(f["del"], dels, terms)
+    write_nt(f["upd"], upd, terms)
+    bundle = os.path.join(root, "headline_bundle")
+    out = {k: os.path.join(root, f"headline_{k}.txt")
+           for k in ("base", "delta", "scratch")}
+    cert = [os.path.join(root, f"headline_cert{i}.json") for i in (0, 1)]
+    base = delta_cli("headline base", [paths["nt"], "--support", "10",
+                                       "--delta-state", bundle, "--output",
+                                       out["base"]],
+                     RDFIND_INTEGRITY="1", RDFIND_CERT=cert[0])
+    bundle_s0 = os.path.join(root, "headline_bundle_s0")
+    shutil.copytree(bundle, bundle_s0)
+    dl = delta_cli("headline s1", [f["ins"], "--delta", bundle, "--deletes",
+                                   f["del"], "--support", "10", "--output",
+                                   out["delta"]],
+                   RDFIND_INTEGRITY="1", RDFIND_CERT=cert[1])
+    scratch = delta_cli("headline scratch", [f["upd"], "--support", "10",
+                                             "--output", out["scratch"],
+                                             "--console-port", "0"],
+                        scrape=True)
+    st = dl["counters"]["stat-delta"]
+    k1 = dl["launches"]["fused_cind_blocks"]
+    if st["path"] != "full-fallback" or k1 <= 0:
+        raise AssertionError(f"delta headline: path {st['path']}, {k1} K1 "
+                             f"launches")
+    if read_bytes(out["delta"]) != read_bytes(out["scratch"]):
+        raise AssertionError("delta headline: output differs from the "
+                             "from-scratch run")
+    codes = scratch["scrapes"]
+    if not all(codes.values()) or any(c != 200 for v in codes.values()
+                                      for c in v):
+        raise AssertionError(f"console scrapes during the CLI run: {codes}")
+    row = delta_row("headline_s1_full_fallback", base, dl,
+                    k1_launches=k1, byte_identical=True,
+                    n_lines=read_bytes(out["delta"]).count(b"\n"),
+                    certificate=check_chain("headline", *cert),
+                    base_phases_s=base["phases_s"],
+                    scratch_wall_s=scratch["wall_s"],
+                    console_scrapes={k: len(v) for k, v in codes.items()})
+    emit(row)
+
+    s0 = ["--support", "10", "--traversal-strategy", "0", "--use-fis"]
+    out_d0, out_s0 = (os.path.join(root, f"headline_s0_{k}.txt")
+                      for k in ("delta", "scratch"))
+    dl0 = delta_cli("headline s0", [f["ins"], "--delta", bundle_s0,
+                                    "--deletes", f["del"], *s0, "--output",
+                                    out_d0])
+    scratch0 = delta_cli("headline s0 scratch", [f["upd"], *s0, "--output",
+                                                 out_s0])
+    st0 = dl0["counters"]["stat-delta"]
+    k1_0 = dl0["launches"]["fused_cind_blocks"]
+    if st0["path"] != "full-fallback" or k1_0 <= 0 or \
+            read_bytes(out_d0) != read_bytes(out_s0):
+        raise AssertionError(f"delta headline s0: path {st0['path']}, {k1_0}"
+                             f" K1 launches, or output differs from the "
+                             f"from-scratch run")
+    emit(delta_row("headline_s0_fis_full_fallback", base, dl0,
+                   k1_launches=k1_0, byte_identical=True,
+                   n_lines=read_bytes(out_d0).count(b"\n"),
+                   scratch_wall_s=scratch0["wall_s"]))
+    return dict(bundle=bundle, ins=f["ins"], dels=f["del"], upd=f["upd"],
+                out=out["delta"], row=row)
+
+
+def run_small_delta(device, root) -> list:
+    """Strategies 2 and 3 in-process through driver.run on 20,000 triples:
+    one base bundle (strategy-agnostic), each strategy's delta on its own
+    copy, each against its from-scratch run."""
+    t = synth.generate_triples(SMALL_DELTA_TRIPLES, seed=42)
+    ins, dels = synth.grow_delta_batches(t, HEADLINE_DELTA_FRAC, seed=4)
+    terms = terms_upto(int(max(t.max(), ins.max())) + 1)
+    f = {k: os.path.join(root, f"small_{k}.nt")
+         for k in ("base", "ins", "del", "upd")}
+    for k, rows in (("base", t), ("ins", ins), ("del", dels),
+                    ("upd", synth.apply_delta(t, ins, dels))):
+        write_nt(f[k], rows, terms)
+    base_dir = os.path.join(root, "small_bundle")
+    common = dict(min_support=10, device=device.type)
+    driver.run(driver.Config(input_paths=[f["base"]], traversal_strategy=2,
+                             delta_state=base_dir, **common))
+    rows = []
+    for strategy in (2, 3):
+        bundle = os.path.join(root, f"small_bundle_s{strategy}")
+        shutil.copytree(base_dir, bundle)
+        out_d, out_s = (os.path.join(root, f"small_s{strategy}_{k}.txt")
+                        for k in ("delta", "scratch"))
+        kernels.reset_contains_check()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = driver.run(driver.Config(
+            input_paths=[f["ins"]], delete_paths=[f["del"]],
+            delta_base=bundle, traversal_strategy=strategy,
+            output_file=out_d, **common))
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        driver.run(driver.Config(input_paths=[f["upd"]],
+                                 traversal_strategy=strategy,
+                                 output_file=out_s, **common))
+        st = res.counters["stat-delta"]
+        if read_bytes(out_d) != read_bytes(out_s):
+            raise AssertionError(f"delta small s{strategy}: output differs")
+        if st["path"] == "full-fallback" and any(
+                launches[k] <= 0 for k in K2_PATH):
+            raise AssertionError(f"delta small s{strategy}: full fallback "
+                                 f"launched {launches}")
+        row = delta_row(f"small_s{strategy}", None,
+                        dict(wall_s=wall, counters=res.counters,
+                             phases_s=res.timings, launches=launches),
+                        n_triples=SMALL_DELTA_TRIPLES, byte_identical=True,
+                        n_lines=read_bytes(out_d).count(b"\n"))
+        emit(row)
+        rows.append(row)
     return rows
+
+
+def trace_stages(trace_dir) -> dict:
+    """Stage spans of an --trace event file: closed ones with their seconds,
+    and the one still open when the process was stopped."""
+    path = os.path.join(trace_dir, "events-host0.jsonl")
+    opened, done = {}, {}
+    last_ts = None
+    with open(path) as f:
+        for ln in f:
+            try:
+                ev = json.loads(ln)
+            except ValueError:
+                continue
+            last_ts = ev.get("ts", last_ts)
+            if ev.get("cat") == "stage" and ev.get("ph") == "B":
+                opened[ev["name"]] = ev["ts"]
+            elif ev.get("ph") == "E" and ev.get("name") in opened:
+                done[ev["name"]] = (ev["ts"] - opened.pop(ev["name"])) / 1e6
+    return dict(done_s=done, open=sorted(opened), open_since_s={
+        k: (time.time_ns() // 1000 - v) / 1e6 for k, v in opened.items()})
+
+
+def run_real_size_delta(triples, root) -> dict:
+    """The real-size workload with --projection so: base, a 0.01 % batch on
+    the incremental path, the from-scratch run, the chain and the reload.
+    Then the same batch with --projection spo, once, under SPO_CAP_S."""
+    ins, dels = synth.grow_delta_batches(triples, REAL_SIZE_DELTA_FRAC, seed=4)
+    terms = terms_upto(int(max(triples.max(), ins.max())) + 1)
+    f = {k: os.path.join(root, f"real_{k}.nt")
+         for k in ("base", "ins", "del", "upd")}
+    t0 = time.perf_counter()
+    for k, rows in (("base", triples), ("ins", ins), ("del", dels),
+                    ("upd", synth.apply_delta(triples, ins, dels))):
+        write_nt(f[k], rows, terms)
+    write_s = time.perf_counter() - t0
+    bundle = os.path.join(root, "real_bundle_so")
+    out = {k: os.path.join(root, f"real_{k}.txt") for k in ("delta",
+                                                             "scratch")}
+    cert = [os.path.join(root, f"real_cert{i}.json") for i in (0, 1)]
+    so = ["--support", "100", "--projection", "so"]
+    base = delta_cli("real-size base", [f["base"], *so, "--delta-state",
+                                        bundle],
+                     RDFIND_INTEGRITY="1", RDFIND_CERT=cert[0])
+    dl = delta_cli("real-size so", [f["ins"], "--delta", bundle, "--deletes",
+                                    f["del"], *so, "--output", out["delta"]],
+                   RDFIND_INTEGRITY="1", RDFIND_CERT=cert[1])
+    scratch = delta_cli("real-size scratch", [f["upd"], *so, "--output",
+                                              out["scratch"]])
+    st = dl["counters"]["stat-delta"]
+    if st["path"] != "incremental" or st["passes_reused"] <= 0:
+        raise AssertionError(f"delta real-size so: {st}")
+    if read_bytes(out["delta"]) != read_bytes(out["scratch"]):
+        raise AssertionError("delta real-size so: output differs from the "
+                             "from-scratch run")
+    t0 = time.perf_counter()
+    reloaded = delta.load_bundle(bundle, min_support=100, projections="so",
+                                 distinct=False)
+    reload_s = time.perf_counter() - t0
+    if reloaded.degraded or int(reloaded.meta["generation"]) != 1:
+        raise AssertionError(f"delta real-size so: reload {reloaded.degraded}"
+                             f", generation {reloaded.meta['generation']}")
+    row = delta_row("real_size_so_incremental", base, dl,
+                    byte_identical=True,
+                    n_lines=read_bytes(out["delta"]).count(b"\n"),
+                    certificate=check_chain("real-size so", *cert),
+                    reload_degradations=0, reload_s=reload_s,
+                    n_rows=int(reloaded.meta["n_rows"]),
+                    base_phases_s=base["phases_s"],
+                    scratch_wall_s=scratch["wall_s"], write_inputs_s=write_s)
+    emit(row)
+
+    # --projection spo: the quadratic re-intersection, capped.
+    spo_bundle = os.path.join(root, "real_bundle_spo")
+    spo_base = delta_cli("real-size spo base", [
+        f["base"], "--support", "100", "--traversal-strategy", "0",
+        "--delta-state", spo_bundle])
+    trace_dir = os.path.join(root, "real_spo_trace")
+    cmd = [sys.executable, "-m", "rdfind_tpu_torch.programs.rdfind",
+           f["ins"], "--delta", spo_bundle, "--deletes", f["del"],
+           "--support", "100", "--traversal-strategy", "0", "--trace",
+           trace_dir, "--counters", "1", "--output",
+           os.path.join(root, "real_spo_delta.txt")]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=SPO_CAP_S,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        finished, rc = True, res.returncode
+        counters, phases = parse_report(res.stderr)
+    except subprocess.TimeoutExpired:
+        finished, rc, counters, phases = False, None, {}, {}
+    wall = time.perf_counter() - t0
+    if finished and rc != 0:
+        raise AssertionError(f"delta real-size spo: rc {rc}\n"
+                             f"{res.stderr[-3000:]}")
+    spo = dict(phase="delta", run="real_size_spo_capped", cap_s=SPO_CAP_S,
+               finished=finished, wall_s=wall, base_wall_s=spo_base["wall_s"],
+               base_phases_s=spo_base["phases_s"],
+               stages=trace_stages(trace_dir), delta_phases_s=phases,
+               stat_delta=counters.get("stat-delta"))
+    emit(spo)
+    return dict(row=row, spo=spo)
+
+
+def http_json(base_url, route, timeout=30):
+    try:
+        with urllib.request.urlopen(base_url + route, timeout=timeout) as r:
+            body = r.read().decode("utf-8")
+            return r.status, (json.loads(body) if r.headers.get(
+                "Content-Type", "").startswith("application/json") else body)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read().decode("utf-8"))
+
+
+def cap_query(role, cap) -> str:
+    code, v1, v2 = cap
+    q = {f"{role}_code": code}
+    if v1 is not None:
+        q[f"{role}_v1"] = v1
+    if v2 is not None:
+        q[f"{role}_v2"] = v2
+    return urllib.parse.urlencode(q)
+
+
+def served_truth(path, strategy, device) -> tuple:
+    """(pretty lines, {(dep, ref): support}) of `strategy` on a file's ids,
+    captures as (code, v1, v2) strings: what an index of that run serves."""
+    ids, dictionary = native.ingest_files([path])
+    table = rdfind_tpu_torch.discover(ids, 10, strategy=strategy,
+                                      device=device)
+    decoded = table.decoded(dictionary)
+    truth = {((c.dep_code, c.dep_v1, c.dep_v2),
+              (c.ref_code, c.ref_v1, c.ref_v2)): c.support for c in decoded}
+    return sorted(c.pretty() for c in decoded), truth
+
+
+def check_answers(label, url, truth, rng, n_holds) -> dict:
+    """Sampled CINDs answered true with their support, as many non-CINDs
+    false, unknown values and captures as misses, top-k equal to the
+    table's; returns the client-side seconds per query."""
+    pairs = list(truth)
+    deps = sorted({d for d, _ in pairs})
+    refs = sorted({r for _, r in pairs})
+    sample = [pairs[i] for i in rng.choice(len(pairs), n_holds,
+                                           replace=False)]
+    non = []
+    while len(non) < n_holds:
+        d = deps[int(rng.integers(len(deps)))]
+        r = refs[int(rng.integers(len(refs)))]
+        if (d, r) not in truth and d != r:
+            non.append((d, r))
+    t0, n = time.perf_counter(), 0
+    for (d, r), want in [(p, True) for p in sample] + [(p, False)
+                                                       for p in non]:
+        code, body = http_json(url, f"/query/holds?{cap_query('dep', d)}&"
+                                    f"{cap_query('ref', r)}")
+        n += 1
+        if code != 200 or body["holds"] is not want:
+            raise AssertionError(f"serve {label}: holds {d} < {r} gave "
+                                 f"{code} {body}, want {want}")
+    for d, r in sample[:N_REFERENCED_QUERIES]:
+        code, body = http_json(url, f"/query/referenced?{cap_query('dep', d)}")
+        n += 1
+        pretty = {x["pretty"] for x in body.get("referenced", ())}
+        if code != 200 or body["support"] != truth[(d, r)] or \
+                conditions.pretty(*r) not in pretty:
+            raise AssertionError(f"serve {label}: referenced {d} gave {code}"
+                                 f" support {body.get('support')}, want "
+                                 f"{truth[(d, r)]}")
+    d = sample[0][0]
+    misses = [f"/query/holds?{cap_query('dep', (d[0], '<nope>', None))}&"
+              f"{cap_query('ref', sample[0][1])}",
+              f"/query/holds?dep=2147483647&ref=0",
+              f"/query/holds?dep_code=63&ref_code=63"]
+    for route in misses:
+        code, body = http_json(url, route)
+        n += 1
+        if code != 200 or body["holds"] is not False:
+            raise AssertionError(f"serve {label}: miss {route}: {code} {body}")
+    code, body = http_json(url, f"/query/referenced?"
+                                f"{cap_query('dep', (d[0], '<nope>', None))}")
+    if code != 200 or body["n"] != 0 or body["support"] is not None:
+        raise AssertionError(f"serve {label}: referenced miss {body}")
+    code, body = http_json(url, "/query/topk?k=10")
+    got = [row["support"] for row in body["results"]]
+    if code != 200 or got != sorted(truth.values(), reverse=True)[:10]:
+        raise AssertionError(f"serve {label}: topk supports {got}")
+    return dict(queries=n + 2, client_s_per_query=(time.perf_counter() - t0)
+                / (n + 2))
+
+
+def run_serve_phase(hd, paths, device, s0_lines, root) -> dict:
+    """programs.serve on the headline bundle (generation 1): the answers
+    against the table; then a strategy-0 --use-fis delta that undoes the
+    batch, under query load, and the hot swap to generation 2."""
+    want_lines, truth1 = served_truth(hd["upd"], 1, device)
+    if "\n".join(want_lines) + "\n" != read_bytes(hd["out"]).decode():
+        raise AssertionError("serve: the strategy-1 truth is not the delta "
+                             "output")
+    bundle = hd["bundle"]
+    index = serving.index_path(bundle)
+    t0 = time.perf_counter()
+    reader_ = serving.IndexReader(index)
+    open_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    verified = reader_.verify()
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    reader_.close()
+    if not verified["ok"]:
+        raise AssertionError(f"serve: index verify {verified}")
+
+    obs_dir = os.path.join(root, "serve_obs")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rdfind_tpu_torch.programs.serve", bundle,
+         "--console-port", "0", "--poll-s", "0.2", "--max-s", "600",
+         "--obs", obs_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = []
+    reader_thread = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stderr.readline, "")),
+        daemon=True)
+    reader_thread.start()
+    try:
+        deadline = time.time() + 60
+        url = None
+        while url is None and time.time() < deadline:
+            for ln in list(lines):
+                m = re.search(r"console on (http://127\.0\.0\.1:\d+)", ln)
+                if m:
+                    url = m.group(1)
+            if proc.poll() is not None:
+                raise AssertionError(f"serve: exited {proc.returncode}: "
+                                     f"{lines}")
+            time.sleep(0.05)
+        if url is None:
+            raise AssertionError(f"serve: no console line in {lines}")
+        rng = np.random.default_rng(7)
+        before = check_answers("generation 1", url, truth1, rng,
+                               N_HOLD_QUERIES)
+        code, st = http_json(url, "/status")
+        if code != 200 or st["serving_index"]["generation"] != 1:
+            raise AssertionError(f"serve: status {code} {st}")
+
+        # Query load while the next generation commits and swaps in.
+        probe = next(iter(truth1))
+        route = (f"/query/holds?{cap_query('dep', probe[0])}&"
+                 f"{cap_query('ref', probe[1])}")
+        load = dict(ok=0, failed=[], gens=set())
+        stop = threading.Event()
+
+        def hammer():
+            while not stop.is_set():
+                try:
+                    code, body = http_json(url, route, timeout=10)
+                    if code == 200 and "generation" in body:
+                        load["ok"] += 1
+                        load["gens"].add(body["generation"])
+                    else:
+                        load["failed"].append((code, body))
+                except OSError as e:
+                    load["failed"].append(repr(e))
+
+        th = threading.Thread(target=hammer, daemon=True)
+        th.start()
+        undo_out = os.path.join(root, "headline_undo.txt")
+        undo = delta_cli("headline undo s0", [
+            hd["dels"], "--delta", bundle, "--deletes", hd["ins"],
+            "--support", "10", "--traversal-strategy", "0", "--use-fis",
+            "--output", undo_out])
+        t_commit = time.time()
+        swapped_at = None
+        while time.time() - t_commit < 60:
+            code, st = http_json(url, "/status")
+            if code == 200 and st["serving_index"]["generation"] == 2:
+                swapped_at = time.time()
+                break
+            time.sleep(0.05)
+        time.sleep(0.5)
+        stop.set()
+        th.join(timeout=30)
+        if swapped_at is None:
+            raise AssertionError(f"serve: no swap to generation 2: {st}")
+        if load["failed"] or load["ok"] == 0 or load["gens"] != {1, 2}:
+            raise AssertionError(f"serve: under swap {load['ok']} answered, "
+                                 f"generations {load['gens']}, failed "
+                                 f"{load['failed'][:5]}")
+        ust = undo["counters"]["stat-delta"]
+        k1 = undo["launches"]["fused_cind_blocks"]
+        undo_lines = read_bytes(undo_out).decode().splitlines()
+        if ust["path"] != "full-fallback" or k1 <= 0 or \
+                undo_lines != s0_lines:
+            raise AssertionError(f"delta undo s0: path {ust['path']}, {k1} K1"
+                                 f" launches, {len(undo_lines)} lines against"
+                                 f" {len(s0_lines)} golden lines")
+        undo_row = delta_row("headline_undo_s0_fis_full_fallback", None,
+                             undo, k1_launches=k1, byte_identical=True,
+                             n_lines=len(undo_lines))
+        emit(undo_row)
+        si = st["serving_index"]
+        chain = si["chain"]
+        if [c["generation"] for c in chain[-2:]] != [1, 2] or \
+                chain[-1]["base_output_digest"] != chain[-2]["output_digest"]:
+            raise AssertionError(f"serve: chain {chain}")
+        _, truth2 = served_truth(paths["nt"], 0, device)
+        after = check_answers("generation 2", url, truth2, rng, 200)
+        code_m, prom = http_json(url, "/metrics")
+        code_s, slo = http_json(url, "/slo")
+        if code_m != 200 or "rdfind_serve_requests_total" not in prom or \
+                code_s != 200 or "verdict" not in slo:
+            raise AssertionError(f"serve: /metrics {code_m}, /slo {code_s}")
+        lat = slo["requests"]["latency_us"]
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            rc = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=30)
+        reader_thread.join(timeout=10)
+    if rc != 143 or not os.path.exists(os.path.join(obs_dir,
+                                                    "slowlog-host0.json")):
+        raise AssertionError(f"serve: SIGTERM exit {rc}, slowlog dumped "
+                             f"{os.path.exists(obs_dir)}")
+    svc = serving.IndexService(bundle)
+    t0 = time.perf_counter()
+    verdict = svc.poll()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    svc.close()
+    row = dict(phase="serve", open_ms=open_ms, verify_ms=verify_ms,
+               swap_ms=swap_ms, swap_verdict=verdict,
+               index_bytes=os.path.getsize(index),
+               swap_lag_s=si["freshness"]["staleness_s"],
+               status_to_swap_s=swapped_at - t_commit,
+               n_cinds_gen1=len(truth1), n_cinds_gen2=len(truth2),
+               queries_gen1=before, queries_gen2=after,
+               under_swap=dict(answered=load["ok"], failed=0,
+                               generations=sorted(load["gens"])),
+               latency_us={ep: {k: v[k] for k in ("count", "p50", "p99",
+                                                   "mean")}
+                           for ep, v in lat.items()},
+               chain=[{k: c[k] for k in ("generation", "output_digest",
+                                         "base_output_digest")}
+                      for c in chain], slo=slo["verdict"]["state"],
+               sigterm_rc=rc)
+    emit(row)
+    return row
+
+
+def run_delta_phases(data, paths, device, s0_lines) -> dict:
+    root = os.path.join(SCRATCH, "delta")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    headline = data["headline"][0]
+    hd = run_headline_delta(headline, paths, root)
+    small = run_small_delta(device, root)
+    serve = run_serve_phase(hd, paths, device, s0_lines, root)
+    real = run_real_size_delta(data[REAL_SIZE][0], root)
+    return dict(headline=hd["row"], small=small, serve=serve, real=real)
 
 
 def main() -> int:
@@ -1177,7 +1829,7 @@ def main() -> int:
     unfiltered = dict(use_frequent_condition_filter=False)
     run_main_path("headline", headline, support, device, strategy=0,
                   reps=1, phase="unfiltered", **unfiltered)
-    run_main_path("headline", headline, support, device, strategy=1,
+    run_main_path("headline", headline, support, device, strategy=1, reps=1,
                   phase="unfiltered", **unfiltered)
     profile_main_path("headline", headline, support, device, 1, **unfiltered)
     run_main_path("headline", headline, support, device, strategy=1, reps=1,
@@ -1188,7 +1840,7 @@ def main() -> int:
     # The chunked pair backend, forced where "auto" would take the dense one.
     for strategy in (0, 2, 3):
         run_main_path("headline", headline, support, device,
-                      strategy=strategy, phase="chunked",
+                      strategy=strategy, reps=1, phase="chunked",
                       pair_backend="chunked")
         profile_main_path("headline", headline, support, device, strategy,
                           pair_backend="chunked")
@@ -1198,7 +1850,7 @@ def main() -> int:
     runs.append(("headline", headline, support, unfiltered))
     for name, triples, sup, extra in runs:
         for threshold in (0, 64):
-            run_main_path(name, triples, sup, device, strategy=1,
+            run_main_path(name, triples, sup, device, strategy=1, reps=1,
                           phase="half_approx", explicit_threshold=threshold,
                           **extra)
         profile_main_path(name, triples, sup, device, 1,
@@ -1208,7 +1860,11 @@ def main() -> int:
     paths = write_inputs(headline)
     run_ingest(headline, paths)
     cli_rows, s1_lines = run_cli_phase(headline, paths, device)
-    run_planes_phase(headline, paths, device, s1_lines, cli_rows[0])
+    _, s0_lines = run_planes_phase(headline, paths, device, s1_lines,
+                                   cli_rows[0])
+
+    # Incremental discovery through the CLI, then the serving process.
+    run_delta_phases(data, paths, device, s0_lines)
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.

@@ -14,7 +14,10 @@ use into ``build/``); the single-device CLI and the small programs of
 ``programs/``; the single-device runtime and observability planes (``obs/``,
 ``runtime/``: tracing, metrics export, memory watermarks, the data and
 integrity planes, stage checkpoints, fault injection, the result collector,
-profiler traces).  What remains is listed in ROADMAP.md.
+profiler traces, the run console); incremental delta discovery against a
+persisted bundle (``runtime/delta.py``) and the mmap'd CIND index with its
+serving process (``runtime/serving.py``, ``programs/serve.py``).  What
+remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

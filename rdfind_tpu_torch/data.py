@@ -57,6 +57,13 @@ class CindTable:
         z = np.zeros(0, np.int64)
         return CindTable(z, z, z, z, z, z, z)
 
+    @staticmethod
+    def from_rows(rows) -> "CindTable":
+        """rows: iterable of 7-tuples (dep_code, dep_v1, dep_v2, ref_code,
+        ref_v1, ref_v2, support), stored sorted."""
+        arr = np.asarray(sorted(rows), dtype=np.int64).reshape(-1, 7)
+        return CindTable(*(arr[:, i] for i in range(7)))
+
     def columns(self) -> tuple:
         return (self.dep_code, self.dep_v1, self.dep_v2, self.ref_code,
                 self.ref_v1, self.ref_v2, self.support)

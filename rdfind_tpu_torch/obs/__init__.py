@@ -21,8 +21,14 @@
   integrity order-invariant content digests and the run certificate.
   sentinel  the BENCH_HISTORY.jsonl perf series + the noise-aware regression
             gate, and the provenance block of a certificate.
+  console   the live run console (loopback HTTP: /metrics, /status,
+            /progress, /datastats, /integrity, /flightrec), grown by the
+            serving process into the query plane (/query/*, /slo,
+            /debug/slowlog).
+  servestats the serving process's per-thread request counters, latency
+            histograms, slow-query ring and SLO engine.
 
-The JAX package's ``obs`` package, module for module, without its run console.
+The JAX package's ``obs`` package, module for module.
 Every submodule is stdlib-only at import time (torch is imported lazily at
 call sites), so runtime/dispatch.py and runtime/faults.py can depend on obs
 without widening their import footprint.
@@ -30,14 +36,17 @@ without widening their import footprint.
 
 from __future__ import annotations
 
-from . import (datastats, flightrec, forecast, heartbeat,  # noqa: F401
-               integrity, memory, metrics, report, sentinel, tracer)
+from . import (console, datastats, flightrec, forecast,  # noqa: F401
+               heartbeat, integrity, memory, metrics, report, sentinel,
+               servestats, tracer)
 
 
 def active() -> bool:
-    """Whether any obs output is live (tracing or metrics exposition) — the
-    gate for sampling work that is pure overhead without a consumer."""
-    return tracer.enabled() or metrics.export_requested()
+    """Whether any obs output is live (tracing, metrics exposition or the
+    run console) — the gate for sampling work that is pure overhead without
+    a consumer."""
+    return (tracer.enabled() or metrics.export_requested()
+            or console.serving())
 
 
 def snapshot() -> dict:

@@ -11,9 +11,10 @@ this module is the data plane:
   schedule) and giant-line share.
 
 Everything publishes through the metrics shims so the ``stats`` dicts, the
-registry mirror and the Prometheus exposition see one schema.  Sampling runs
-only with a consumer: :func:`enabled` is False unless the tracer or the
-metrics exposition is live or the ``RDFIND_DATASTATS`` knob forces it.
+registry mirror, the Prometheus exposition and the console's ``/datastats``
+see one schema.  Sampling runs only with a consumer: :func:`enabled` is False
+unless the tracer, the metrics exposition or the run console is live or the
+``RDFIND_DATASTATS`` knob forces it.
 
 The JAX package's ``obs/datastats.py``, copied.  Stdlib only at import time;
 numpy is imported lazily inside the helpers that bucket host arrays.
@@ -34,17 +35,19 @@ def enabled() -> bool:
     """Whether data-distribution sampling should run.
 
     ``RDFIND_DATASTATS=0`` forces it off, ``=1`` forces it on; by default it
-    follows the consumers — live exactly when the tracer or the Prometheus
-    exposition could show the result (no sampling work without a consumer).
-    The JAX package also counts its run console as a consumer; the port has
-    no console yet, so that term is always off here.
+    follows the consumers — live exactly when the tracer, the Prometheus
+    exposition or the run console could show the result (no sampling work
+    without a consumer).
     """
     v = os.environ.get("RDFIND_DATASTATS", "").strip()
     if v == "0":
         return False
     if v == "1":
         return True
-    return tracer.enabled() or metrics.export_requested()
+    if tracer.enabled() or metrics.export_requested():
+        return True
+    from . import console
+    return console.serving()
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,7 @@ package's ``obs/integrity.digest_table`` bit for bit, which is how a run of the
 port is checked against a run of the reference.
 
 Gating: ``RDFIND_INTEGRITY=0`` forces off, ``=1`` forces on, default follows the
-live obs consumers (tracer, metrics exposition).  ``RDFIND_INTEGRITY_STRICT=1``
+live obs consumers (tracer, metrics exposition, run console).  ``RDFIND_INTEGRITY_STRICT=1``
 turns a verification mismatch into a failed run (IntegrityError); the default
 records a named ``integrity`` event and continues flagged.  The run
 certificate (input signature -> stage digests -> output digest, with
@@ -46,17 +46,19 @@ def enabled() -> bool:
     """Whether integrity verification should run.
 
     ``RDFIND_INTEGRITY=0`` forces it off, ``=1`` forces it on; by default it
-    follows the consumers — live exactly when the tracer or the Prometheus
-    exposition could show the result (no verification work without a
-    consumer).  The JAX package also counts its run console as a consumer;
-    the port has no console yet, so that term is always off here.
+    follows the consumers — live exactly when the tracer, the Prometheus
+    exposition or the run console could show the result (no verification
+    work without a consumer).
     """
     v = os.environ.get("RDFIND_INTEGRITY", "").strip()
     if v == "0":
         return False
     if v == "1":
         return True
-    return tracer.enabled() or metrics.export_requested()
+    if tracer.enabled() or metrics.export_requested():
+        return True
+    from . import console
+    return console.serving()
 
 
 def strict() -> bool:

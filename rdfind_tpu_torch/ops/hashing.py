@@ -5,6 +5,9 @@ on every device, so the port holds each 32-bit value in an int64 tensor and mask
 with ``& MASK32`` after every multiply and add: the low 32 bits of a wrapped
 int64 product are those of the uint32 product, and every shift sees a value in
 [0, 2^32).  Results are int64 tensors holding values in [0, 2^32).
+
+``host_bucket_of`` is the same law on host numpy arrays, the bucket routing
+of the delta engine's evidence layout (``runtime/delta.py``).
 """
 
 from __future__ import annotations
@@ -34,3 +37,18 @@ def hash_cols(cols, seed: int = 0) -> torch.Tensor:
     for c in cols:
         h = mix32(as_u32(c) ^ ((h + GOLDEN) & MASK32))
     return h
+
+
+def host_bucket_of(cols, num_buckets: int, seed: int = 0):
+    """Bucket id in [0, num_buckets) of each row of integer key columns: the
+    JAX package's ``ops/hashing.host_bucket_of`` bit for bit, as an int32
+    numpy array.  Held in int64 and masked to 32 bits after every multiply
+    and add, as the tensor law above."""
+    import numpy as np
+    h = np.int64((GOLDEN * (seed + 1)) & MASK32)
+    for c in cols:
+        x = (np.asarray(c).astype(np.int64) & MASK32) ^ ((h + GOLDEN) & MASK32)
+        x = ((x ^ (x >> 16)) * 0x85EBCA6B) & MASK32
+        x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
+        h = x ^ (x >> 16)
+    return (np.asarray(h, np.int64) % int(num_buckets)).astype(np.int32)

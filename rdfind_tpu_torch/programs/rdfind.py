@@ -5,9 +5,13 @@ defaults and messages, small-to-large (1) the default strategy, native fused
 ingest the default read path.  The runtime and observability flags
 (``--checkpoint-dir``, ``--trace``, ``--metrics-file``, ``--profile-dir``,
 ``--collector``) work as in the JAX package.  Flags whose behaviour is built in
-are accepted for compatibility and noted when set.  The flags of the sharded
-pipeline, the preemption supervisor and the delta and serving planes are
-rejected with a message naming them; none is silently ignored.
+are accepted for compatibility and noted when set.  Incremental discovery
+works as in the JAX package: ``--delta-state DIR`` makes a full run persist its
+base bundle and servable index, ``--delta DIR INSERTS --deletes DELETES``
+replays a change batch against it (exit 66 when the bundle cannot be trusted),
+and ``--console-port`` serves the live run console.  The flags of the sharded
+pipeline and the preemption supervisor are rejected with a message naming
+them; none is silently ignored.
 
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
         --output cinds.txt [--traversal-strategy 0|1|2|3] [--device cpu]
@@ -22,7 +26,6 @@ STRATEGIES = (0, 1, 2, 3)
 _MESH = "the sharded multi-device pipeline (ROADMAP.md, queue 1, item 2)"
 _SUPERVISOR = ("the preemption supervisor, which comes with the sharded "
                "pipeline (ROADMAP.md, queue 1, item 2a)")
-_SERVING = "the delta and serving planes (ROADMAP.md, queue 1, item 1b)"
 # Flags of the JAX package's CLI whose machinery the port does not have yet,
 # rejected with a pointer to the work queue.
 UNPORTED = {
@@ -31,8 +34,6 @@ UNPORTED = {
     "--rebalance-strategy": _MESH, "--rebalance-max-load": _MESH,
     "--rebalance-threshold": _MESH, "--no-combinable-join": _MESH,
     "--retry-on-preempt": _SUPERVISOR,
-    "--delta": _SERVING, "--delta-state": _SERVING, "--deletes": _SERVING,
-    "--console-port": _SERVING,
 }
 # Accepted for compatibility: behaviour built in or subsumed, noted when set.
 _NO_EFFECT = (
@@ -63,7 +64,27 @@ def build_parser() -> argparse.ArgumentParser:
         prog="rdfind-torch",
         description="Discover Conditional Inclusion Dependencies in RDF datasets "
                     "(PyTorch/CUDA port; one device).")
-    p.add_argument("inputs", nargs="+", help="input .nt/.nq[.gz] files or globs")
+    p.add_argument("inputs", nargs="*",
+                   help="input .nt/.nq[.gz] files or globs (for --delta "
+                        "runs these are the INSERT batch; may be empty for "
+                        "a delete-only batch)")
+    p.add_argument("--delta", default=None, metavar="BASE_DIR",
+                   dest="delta_base",
+                   help="incremental run: apply the insert (positional) and "
+                        "--deletes batches against the base bundle in "
+                        "BASE_DIR (written by a full run with "
+                        "--delta-state); output is bit-identical to a "
+                        "from-scratch run on the updated dataset, and the "
+                        "bundle advances one generation in place")
+    p.add_argument("--delta-state", default=None, metavar="DIR",
+                   help="full run: persist the delta base bundle (interned "
+                        "dictionary + per-bucket join-line rows + per-pass "
+                        "digests + the definitional CIND set) into DIR for "
+                        "later --delta runs")
+    p.add_argument("--deletes", nargs="*", default=[], metavar="FILE",
+                   help="delete batch files for a --delta run (same formats "
+                        "as the inputs; each line retracts one matching "
+                        "triple)")
     p.add_argument("--prefixes", nargs="*", default=[],
                    help="nt-prefix files for URL shortening")
     p.add_argument("--support", type=int, default=10,
@@ -115,6 +136,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="obs: write the metrics registry as Prometheus text "
                         "exposition to FILE (atomically refreshed at every "
                         "stage boundary and at run end)")
+    p.add_argument("--console-port", type=int, default=None, metavar="PORT",
+                   help="obs: serve the live run console on this port "
+                        "(loopback HTTP: /metrics /status /progress "
+                        "/datastats /flightrec; 0 binds an ephemeral port, "
+                        "printed to stderr; RDFIND_CONSOLE_PORT is the env "
+                        "form)")
     p.add_argument("--counters", type=int, default=0, dest="counter_level")
     for flag in ("--find-frequent-captures", "--no-bulk-merge",
                  "--rebalance-join", "--apply-hash",
@@ -179,7 +206,26 @@ def main(argv=None) -> int:
     if not args.projection or not set(args.projection) <= set("spo"):
         parser.error(f"--projection {args.projection!r} must be a non-empty "
                      f"subset of 'spo'")
-    from ..runtime import driver
+    if args.deletes and not args.delta_base:
+        parser.error("--deletes only applies to incremental runs; pass "
+                     "--delta BASE_DIR")
+    if not args.inputs and not (args.delta_base and args.deletes):
+        parser.error("no input files (positional inputs may only be empty "
+                     "for a delete-only --delta run with --deletes)")
+    if args.delta_base:
+        for flag, bad in (("--only-read", args.only_read),
+                          ("--do-only-join", args.only_join),
+                          ("--find-only-fcs", args.find_only_fcs),
+                          ("--checkpoint-dir", args.checkpoint_dir)):
+            if bad:
+                parser.error(f"{flag} is not supported with --delta "
+                             f"(the delta engine replays host-side against "
+                             f"the base bundle)")
+        if args.delta_state:
+            print("note: --delta-state is ignored with --delta (the run "
+                  "advances the base bundle in place)", file=sys.stderr)
+            args.delta_state = None
+    from ..runtime import delta, driver
 
     cfg = driver.Config(
         input_paths=args.inputs,
@@ -215,6 +261,10 @@ def main(argv=None) -> int:
         collector=args.collector,
         trace_dir=args.trace_dir,
         metrics_file=args.metrics_file,
+        console_port=args.console_port,
+        delta_base=args.delta_base,
+        delta_state=args.delta_state,
+        delete_paths=args.deletes,
         device=args.device,
     )
     for name, why in _NO_EFFECT:
@@ -222,7 +272,14 @@ def main(argv=None) -> int:
         if v not in (_NO_EFFECT_DEFAULTS.get(name, False), None):
             print(f"note: --{name.replace('_', '-')} has no effect ({why})",
                   file=sys.stderr)
-    result = driver.run(cfg)
+    try:
+        result = driver.run(cfg)
+    except delta.DeltaBaseError as e:
+        # A clean miss, never a wrong incremental answer: name the failure
+        # and tell the caller how to rebuild.
+        print(f"rdfind: delta base unusable ({e}); re-run a full build "
+              f"with --delta-state to rebuild the bundle", file=sys.stderr)
+        return 66  # EX_NOINPUT: the base bundle cannot serve this run
     if not (cfg.output_file or cfg.collect_result):
         print(f"Detected {len(result.table)} CINDs.")
     return 0

@@ -14,8 +14,13 @@ exposition flush (``--trace``, ``--metrics-file``); ``--checkpoint-dir`` keeps
 the ingest and discover stages (``resume-*`` / ``checkpoint-*`` phases, a failed
 write counted in ``checkpoint-errors``); ``--collector`` streams the CINDs to a
 remote sink; the integrity plane writes the run certificate (``RDFIND_CERT``);
-``--profile-dir`` wraps the run in ``torch.profiler``.  The sharded path, its
-preemption supervisor and the delta and serving planes are not here.
+``--profile-dir`` wraps the run in ``torch.profiler``; ``--console-port`` serves
+the live run console for the run's duration.  ``--delta-state`` makes a full run
+persist the delta base bundle and its servable index; ``--delta`` replays a
+change batch against such a bundle (``runtime/delta.py``), and
+``RDFIND_SERVE_INDEX`` names one more directory every run writes its index to
+(``runtime/serving.py``).  The sharded path and its preemption supervisor are
+not here.
 """
 
 from __future__ import annotations
@@ -39,10 +44,10 @@ from ..dictionary import Dictionary, intern_triples
 from ..io import native, ntriples, prefixes, reader
 from ..models import allatonce, approximate, late_bb, small_to_large
 from ..obs import memory as obs_memory
-from ..obs import flightrec, integrity, metrics, report, tracer
+from ..obs import console, flightrec, integrity, metrics, report, tracer
 from ..ops import frequency, segments
 from ..ops.emission import emit_join_candidates
-from . import checkpoint
+from . import checkpoint, delta, serving
 
 # Strategy ids follow the reference: 0 = all-at-once, 1 = small-to-large,
 # 2 = approximate all-at-once, 3 = late-BB.
@@ -87,6 +92,13 @@ class Config:
     collector: str | None = None  # "host:port" remote result sink
     trace_dir: str | None = None  # obs: host span trace + heartbeat directory
     metrics_file: str | None = None  # obs: Prometheus text exposition file
+    console_port: int | None = None  # obs: live HTTP console (0 = ephemeral)
+    # Incremental discovery (runtime/delta.py): --delta runs a change batch
+    # against a persisted base bundle; --delta-state makes a full run write
+    # one; --deletes names the delete batch files for a delta run.
+    delta_base: str | None = None
+    delta_state: str | None = None
+    delete_paths: list[str] = dataclasses.field(default_factory=list)
     device: str | None = None  # None: the CUDA card
 
 
@@ -132,9 +144,12 @@ def _load_prefix_trie(cfg: Config):
 
 def _resolve_inputs(cfg: Config):
     """Input paths + the quad-format sniff (N-Quads when the first input is
-    ``.nq``/``.nq.gz``: the graph term is dropped)."""
-    paths = reader.resolve_path_patterns(cfg.input_paths, cfg.file_filter)
-    return paths, paths[0].endswith((".nq", ".nq.gz"))
+    ``.nq``/``.nq.gz``: the graph term is dropped).  Empty inputs are legal
+    only for delete-only delta runs (the CLI enforces that), so the sniff
+    defaults to triples then."""
+    paths = (reader.resolve_path_patterns(cfg.input_paths, cfg.file_filter)
+             if cfg.input_paths else [])
+    return paths, bool(paths) and paths[0].endswith((".nq", ".nq.gz"))
 
 
 def load_triples(cfg: Config, phases: _Phases, counters: dict) -> list:
@@ -474,12 +489,16 @@ def _flush_progress_on_signal(enabled: bool):
 def _obs_session(cfg: Config):
     """Arm the obs layer for one run — span tracing and heartbeat when
     --trace/RDFIND_TRACE names a directory, Prometheus exposition when
-    --metrics-file/RDFIND_METRICS_FILE names a file — and tear it down,
-    exporting the merged Chrome trace, however the run ends.  With no knob
-    set the run pays only the disabled-path checks."""
+    --metrics-file/RDFIND_METRICS_FILE names a file, the live console when
+    --console-port/RDFIND_CONSOLE_PORT names a port (0 binds an ephemeral
+    port, printed to stderr) — and tear it down, exporting the merged Chrome
+    trace, however the run ends.  With no knob set the run pays only the
+    disabled-path checks."""
     trace_dir = cfg.trace_dir or os.environ.get("RDFIND_TRACE") or None
     metrics_file = (cfg.metrics_file
                     or os.environ.get("RDFIND_METRICS_FILE") or None)
+    console_port = (cfg.console_port if cfg.console_port is not None
+                    else console.env_port())
     obs_memory.reset()
     flightrec.configure()  # re-read RDFIND_FLIGHTREC at every run start
     flightrec.reset()
@@ -487,9 +506,22 @@ def _obs_session(cfg: Config):
         metrics.set_export(metrics_file)
     if trace_dir:
         tracer.start(trace_dir)
+    console_started = False
+    if console_port is not None:
+        bound = console.start(console_port, obs_dir=trace_dir)
+        if bound is None:
+            print(f"warning: run console could not bind port {console_port};"
+                  f" continuing without it", file=sys.stderr)
+        else:
+            console_started = True
+            print(f"rdfind: run console on http://{console.DEFAULT_HOST}:"
+                  f"{bound}/ (/metrics /status /progress /datastats "
+                  f"/flightrec)", file=sys.stderr, flush=True)
     try:
         yield
     finally:
+        if console_started:
+            console.stop()
         if metrics_file:
             try:
                 metrics.flush_export()
@@ -534,6 +566,11 @@ def _run(cfg: Config) -> RunResult:
 
     if cfg.print_plan:
         print(json.dumps(describe_plan(cfg), indent=2))
+    if cfg.delta_base:
+        # Incremental discovery: the change batch replays against the
+        # persisted base bundle host-side; a full fallback discovers on the
+        # run's device.  It emits through the same sinks as a full run.
+        return delta.run_delta(cfg, phases, counters, stats, dev)
     tracer.set_status(mode="full")
 
     use_native = _native_ingest(cfg)
@@ -614,6 +651,22 @@ def _run(cfg: Config) -> RunResult:
                 _safe_save(ckpt, "discover", discover_fp, arrays, counters)
             phases.run("checkpoint-discover", save_discover)
     counters["cind-counter"] = len(table)
+    base_meta: dict = {}
+    if cfg.delta_state:
+        # Persist the base bundle (generation 0) the incremental runs load.
+        base_meta = phases.run("delta-state", lambda: delta.write_base_bundle(
+            cfg, ids, dictionary, table, stats, phases.timings, dev))
+    if cfg.delta_state or serving.env_index_dir():
+        # The servable artifact: the generation-0 index next to the bundle
+        # (and/or into RDFIND_SERVE_INDEX).  The bundle's commit stamp and
+        # batch identity ride into the index meta (None values are dropped).
+        phases.run("serve-index", lambda: serving.emit_index(
+            [cfg.delta_state] if cfg.delta_state else [],
+            dictionary, table, generation=0, base_output_digest=None,
+            strategy=cfg.traversal_strategy, min_support=cfg.min_support,
+            stats=stats,
+            extra={"bundle_commit_unix": base_meta.get("commit_unix"),
+                   "batch": base_meta.get("batch")}))
     counters.update({f"stat-{k}": v for k, v in stats.items()})
     _emit_sinks(cfg, phases, counters, table, dictionary, stats, ids, dev)
     _report(cfg, counters, phases.timings)
@@ -684,11 +737,21 @@ def _emit_sinks(cfg: Config, phases: _Phases, counters: dict, table,
             def write_cert():
                 from ..obs import sentinel
                 paths, _ = _resolve_inputs(cfg)
+                if cfg.delete_paths:
+                    paths = list(paths) + reader.resolve_path_patterns(
+                        cfg.delete_paths)
+                extra = {"summary": summary, "n_cinds": len(table)}
+                delta_info = stats.get("delta") or {}
+                if delta_info.get("base_output_digest"):
+                    # Chain the incremental run onto its base: a verifier
+                    # walks base_output_digest links back to generation 0.
+                    extra["base_output_digest"] = \
+                        delta_info["base_output_digest"]
+                    extra["generation"] = delta_info.get("new_generation")
                 cert = integrity.run_certificate(
                     input_signature=checkpoint.input_signature(paths),
                     stages=stages, output_digest=stages["output"],
-                    provenance=sentinel.provenance(),
-                    extra={"summary": summary, "n_cinds": len(table)})
+                    provenance=sentinel.provenance(), extra=extra)
                 integrity.write_certificate(dest, cert)
             phases.run("write-certificate", write_cert)
 

@@ -10,10 +10,13 @@ from ``zipf`` below instead of ``numpy.random.Generator.zipf``, whose stream
 changed between numpy releases (2.0.2 and 2.3.5 give different draws for one
 seed).  ``zipf`` consumes only ``Generator.random``, whose stream numpy keeps
 stable, so a seed gives the same triples under every numpy release; hand the
-same array to both packages when comparing them.
+same array to both packages when comparing them.  The delta-batch helpers
+(``grow_delta_batches``, ``apply_delta``) are the JAX package's, copied.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import numpy as np
 
@@ -228,3 +231,47 @@ def generate_dbpedia_shaped(n: int, seed: int = 0) -> np.ndarray:
     obj_ids = np.where(is_uri, obj_uri,
                        n_subj + n_pred + obj_lit)
     return np.stack([subj_ids, pred_ids, obj_ids.astype(np.int32)], axis=1)
+
+
+def grow_delta_batches(triples: np.ndarray, frac: float, seed: int = 0):
+    """Grow an insert/delete script touching ~`frac` of the workload.
+
+    Returns (inserts, deletes): `deletes` are rows sampled from `triples`
+    (each retracts one line), `inserts` are half recombinations of existing
+    values (perturbing existing join lines) and half rows over brand-new
+    ids past the current maximum (minting new dictionary values — and with
+    them new buckets — in the delta run).  Row counts split the change
+    budget evenly; at least one of each when frac > 0."""
+    t = np.asarray(triples, np.int64)
+    n = t.shape[0]
+    rng = np.random.default_rng(seed)
+    n_changes = max(2, int(round(n * frac)))
+    n_del = max(1, n_changes // 2)
+    n_ins = max(1, n_changes - n_del)
+    deletes = t[rng.choice(n, size=min(n_del, n), replace=False)]
+    n_recomb = n_ins // 2
+    pool = np.unique(t.reshape(-1))
+    recomb = rng.choice(pool, size=(n_recomb, 3))
+    base = int(t.max()) + 1 if n else 0
+    fresh = base + np.arange((n_ins - n_recomb) * 3,
+                             dtype=np.int64).reshape(-1, 3)
+    inserts = np.concatenate([recomb.reshape(-1, 3), fresh])
+    return inserts.astype(np.int64), deletes.astype(np.int64)
+
+
+def apply_delta(triples: np.ndarray, inserts: np.ndarray,
+                deletes: np.ndarray) -> np.ndarray:
+    """The updated dataset a from-scratch comparator runs on: multiset
+    minus one occurrence per delete row, plus the insert rows (mirrors the
+    delta engine's bag semantics)."""
+    t = [tuple(r) for r in np.asarray(triples, np.int64).tolist()]
+    pending = Counter(map(tuple, np.asarray(deletes, np.int64).tolist()))
+    kept = []
+    for row in t:
+        if pending.get(row, 0) > 0:
+            pending[row] -= 1
+            continue
+        kept.append(row)
+    out = kept + [tuple(r) for r in np.asarray(inserts, np.int64).tolist()]
+    return (np.asarray(out, np.int64).reshape(-1, 3)
+            if out else np.zeros((0, 3), np.int64))

@@ -1,8 +1,9 @@
 """The port's CLI against the JAX package's: byte-identical output files for the
 same input and flags, the same association-rule files, standard output (plan JSON,
 histogram lines, collected CINDs) and counter lines, the runtime and
-observability flags accepted, and every flag of the sharded pipeline, the
-preemption supervisor and the delta and serving planes rejected by name."""
+observability flags accepted, every flag of the sharded pipeline and the
+preemption supervisor rejected by name, and the delta flags' misuse rejected as
+the JAX CLI rejects it."""
 
 import gzip
 import json
@@ -107,10 +108,11 @@ def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
     (["--rebalance-max-load=5"], "--rebalance-max-load"),
     (["--rebalance-threshold", "2"], "--rebalance-threshold"),
     (["--no-combinable-join"], "--no-combinable-join"),
-    (["--delta", "bundle"], "--delta"),
-    (["--delta-state", "bundle"], "--delta-state"),
+    # The delta and console flags are ported: their misuse is rejected.
+    (["--delta", "bundle", "--only-read"], "--delta"),
+    (["--delta-state"], "--delta-state"),
     (["--deletes", "d.nt"], "--deletes"),
-    (["--console-port", "0"], "--console-port"),
+    (["--console-port", "x"], "--console-port"),
     (["--retry-on-preempt", "2"], "--retry-on-preempt"),
     (["--traversal-strategy", "0", "--projection", "x"], "--projection"),
 ])
@@ -126,8 +128,7 @@ def test_unported_holds_exactly_the_fifteen_flags():
         "--dop", "--coordinator", "--num-hosts", "--host-index",
         "--sharded-ingest", "--interning", "--rebalance-strategy",
         "--rebalance-max-load", "--rebalance-threshold",
-        "--no-combinable-join", "--retry-on-preempt", "--delta",
-        "--delta-state", "--deletes", "--console-port"])
+        "--no-combinable-join", "--retry-on-preempt"])
     assert all("ROADMAP.md, queue 1, item" in why
                for why in tcli.UNPORTED.values())
 

@@ -470,3 +470,96 @@ def test_kernel_selfcheck_parity_on_the_card(cuda):
     assert got["parity"] and got["backend"] == "cuda"
     assert got["out_hash"] == want["out_hash"]
     assert got["kernel_ms"] > 0 and got["plain_ms"] > 0
+
+
+def _write_nt(path, triples):
+    path.write_text("".join(f"<e{s}> <e{p}> <e{o}> .\n"
+                            for s, p, o in np.asarray(triples)))
+
+
+@pytest.mark.parametrize("strategy,frac", [("1", 0.3), ("0", 0.3),
+                                           ("2", 0.3)])
+def test_delta_on_cuda_equals_its_from_scratch_run(cuda, tmp_path, strategy,
+                                                   frac):
+    """A base bundle, a change batch through --delta (the full fallback
+    discovers on the card) and the from-scratch run on the updated file:
+    byte-identical, the fallback's kernels launched."""
+    from rdfind_tpu_torch.programs import rdfind as tcli
+
+    t = synth.generate_triples(3000, seed=5)
+    ins, dels = synth.grow_delta_batches(t, frac, seed=4)
+    for name, rows in (("base", t), ("ins", ins), ("del", dels),
+                       ("upd", synth.apply_delta(t, ins, dels))):
+        _write_nt(tmp_path / f"{name}.nt", rows)
+    common = ["--support", "3", "--traversal-strategy", strategy]
+    bundle = str(tmp_path / "bundle")
+    assert tcli.main([str(tmp_path / "base.nt"), *common, "--delta-state",
+                      bundle]) == 0
+    kernels.reset_contains_check()
+    kernels.reset_launches()
+    assert tcli.main([str(tmp_path / "ins.nt"), "--delta", bundle,
+                      "--deletes", str(tmp_path / "del.nt"), *common,
+                      "--output", str(tmp_path / "delta.txt")]) == 0
+    launches = dict(kernels.LAUNCHES)
+    assert tcli.main([str(tmp_path / "upd.nt"), *common, "--output",
+                      str(tmp_path / "scratch.txt")]) == 0
+    want = (tmp_path / "scratch.txt").read_bytes()
+    assert want.count(b"\n") > 0
+    assert (tmp_path / "delta.txt").read_bytes() == want
+    on_path = {"0": ["fused_cind_blocks"], "1": ["fused_cind_blocks"],
+               "2": ["packed_contains_matrix", "repeat_probe",
+                     "pipeline_probe"]}[strategy]
+    for name in on_path:
+        assert launches[name] > 0, name
+
+
+def test_base_bundle_full_set_launches_k1(cuda, tmp_path):
+    """Strategy 1 launches no hand-written kernel; its base bundle's full
+    definitional set is strategy 0's dense sweep, on the card."""
+    from rdfind_tpu_torch.programs import rdfind as tcli
+    from rdfind_tpu_torch.runtime import delta
+
+    _write_nt(tmp_path / "base.nt", synth.generate_triples(3000, seed=5))
+    args = [str(tmp_path / "base.nt"), "--support", "3",
+            "--traversal-strategy", "1"]
+    kernels.reset_launches()
+    assert tcli.main(args) == 0
+    assert kernels.LAUNCHES["fused_cind_blocks"] == 0
+    assert tcli.main(args + ["--delta-state", str(tmp_path / "b")]) == 0
+    assert kernels.LAUNCHES["fused_cind_blocks"] > 0
+    b = delta.load_bundle(str(tmp_path / "b"), min_support=3,
+                          projections="spo", distinct=False)
+    assert not b.degraded and b.full.shape[0] > 0
+
+
+_SERVE = """
+import sys
+sys.path.insert(0, {repo!r})
+from rdfind_tpu_torch.programs import serve
+rc = serve.main([{index!r}, "--console-port", "0", "--poll-s", "0.05",
+                 "--max-s", "1"])
+import torch
+print("rc", rc, "cuda_initialized", torch.cuda.is_initialized())
+"""
+
+
+def test_serve_never_initialises_cuda(cuda, tmp_path):
+    """The serving process answers from host memory: on a machine with a
+    card it still never creates a CUDA context."""
+    import os
+    import subprocess
+    import sys
+
+    from rdfind_tpu_torch.data import CindTable
+    from rdfind_tpu_torch.runtime import serving
+
+    rows = [(17, 0, -1, 20, 1, -1, 5), (17, 0, -1, 20, 2, -1, 5)]
+    serving.write_index(str(tmp_path / "idx"), ["a", "b", "c"],
+                        CindTable.from_rows(rows), generation=0,
+                        output_digest="g0")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _SERVE.format(
+        repo=repo, index=str(tmp_path / "idx"))], capture_output=True,
+        text=True, timeout=120, cwd=repo)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["rc", "0", "cuda_initialized", "False"]
