@@ -89,7 +89,18 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    ``/status`` shows the chain, ``/metrics`` and ``/slo`` answer, the new
    answers equal the new table; SIGTERM dumps the slow-query ring.  Index
    open, verify and swap times, and the server's p50/p99 query latency;
-14. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+14. ``sharded``: the sharded strategy-0 pipeline (``models/sharded.py``)
+   through the launcher, with the frequent-condition filter: a one-rank NCCL
+   group on the headline and the real-size workload, each equal to its golden;
+   four ranks on the one card over gloo staged through host memory
+   (``RDFIND_TORCH_DIST_BACKEND=gloo``), equal to the goldens and with the
+   JAX package's plan and skew statistics at 4 devices; the CLI with
+   ``--dop 4`` on the headline file, equal to the strategy-0 CLI output; the
+   same preempted after pass 0 under ``--retry-on-preempt 2``: one
+   supervisor retry, resumed passes, byte-identical.  Each run's wall, host ms
+   per pipeline stage, exchange bytes per site, idle share, peak memory per
+   rank and transport;
+15. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
    The kernel phase also times an empty launch (``launch_floor``), the
    practical floor under the probes P1 and P2.
 
@@ -131,6 +142,7 @@ from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
 from rdfind_tpu_torch.obs import console, integrity, metrics, report  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
+from rdfind_tpu_torch.parallel import launch  # noqa: E402
 from rdfind_tpu_torch.programs import rdfind as cli  # noqa: E402
 from rdfind_tpu_torch.runtime import delta, driver, faults, serving  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
@@ -1762,6 +1774,253 @@ def run_delta_phases(data, paths, device, s0_lines) -> dict:
     return dict(headline=hd["row"], small=small, serve=serve, real=real)
 
 
+# The sharded pipeline (models/sharded.py, --dop).  The 4-rank runs use a pair
+# row budget of 2^23 per rank and pass (RDFIND_PAIR_ROW_BUDGET): 4 ranks share
+# the one card, and the default 2^25 would hold ~10 GB of exchange buffers per
+# rank.  The one-rank runs keep the default.  Their plan and skew statistics
+# are the JAX package's at 1 and 4 devices with the same budgets, recorded on
+# the CPU by scripts/record_sharded_goldens.py (planned_caps and n_pair_passes
+# from JAX's _Pipeline; n_giant_lines / n_giant_pairs read off its resident
+# lines with the pair phase's own float32 arithmetic; --check holds that
+# reading against a complete discover_sharded at 3,000 triples).  Both
+# workloads run with the frequent-condition filter: without it dbpedia2m's hub
+# lines hold 3.4e11 giant pairs (the JAX plan at 4 devices), which no explicit
+# pair phase finishes.
+SHARDED_BUDGET = 1 << 23
+GOLDEN_SHARDED = {
+    ("headline", 1): dict(
+        n_pair_passes=10, n_giant_lines=119, n_giant_pairs=159945792,
+        planned_caps=dict(freq=65536, exchange_a=1048576, exchange_b=524288,
+                          pairs=1048576, exchange_c=134217728,
+                          giant_rows=131072, giant_pairs=67108864)),
+    ("dbpedia2m", 1): dict(
+        n_pair_passes=22, n_giant_lines=205, n_giant_pairs=310417174,
+        planned_caps=dict(freq=2097152, exchange_a=16777216,
+                          exchange_b=4194304, pairs=8388608,
+                          exchange_c=67108864, giant_rows=262144,
+                          giant_pairs=33554432)),
+    ("headline", 4): dict(
+        n_pair_passes=10, n_giant_lines=119, n_giant_pairs=159945792,
+        planned_caps=dict(freq=8192, exchange_a=65536, exchange_b=32768,
+                          pairs=262144, exchange_c=8388608, giant_rows=65536,
+                          giant_pairs=16777216)),
+    ("dbpedia2m", 4): dict(
+        n_pair_passes=22, n_giant_lines=205, n_giant_pairs=310417174,
+        planned_caps=dict(freq=131072, exchange_a=1048576, exchange_b=262144,
+                          pairs=2097152, exchange_c=4194304, giant_rows=65536,
+                          giant_pairs=8388608)),
+}
+SHARDED_STAGES = ("plan", "lines", "rebalance", "captures", "passes")
+
+
+class DeviceUtilization:
+    """The card's busy share over a block, from NVML: ``nvidia-smi`` samples
+    ``utilization.gpu`` (the share of its sample period in which a kernel ran
+    on the card, any process's) every 100 ms in a child process that the
+    block ends."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-i", "0", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.samples = [float(x) for x in out.split()
+                        if x.replace(".", "", 1).isdigit()]
+        return False
+
+    @property
+    def busy_share(self):
+        if not self.samples:
+            return None
+        return sum(self.samples) / len(self.samples) / 100.0
+
+
+def sharded_rank(mesh, triples, support, kw):
+    """One rank of a sharded run (spawned by the launcher, which imports it by
+    name): discover_sharded, with rank 0 sampling the card's utilization.
+    Returns rank 0's table, stats (with every rank's peak device memory),
+    wall and the card's busy share."""
+    from rdfind_tpu_torch.models import sharded
+
+    t_enter = time.time()
+    dev = mesh.device
+    stats = {}
+    util = (DeviceUtilization() if mesh.rank == 0
+            else contextlib.nullcontext())
+    with util:
+        t0 = time.perf_counter()
+        table = sharded.discover_sharded(triples, support, mesh=mesh,
+                                         stats=stats, **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    if mesh.rank != 0:
+        return None
+    return dict(table=table, stats=stats, wall_s=wall,
+                busy_share=util.busy_share, n_util_samples=len(util.samples),
+                t_enter=t_enter, t_leave=time.time())
+
+
+def run_sharded(label, name, triples, support, world, kw, env) -> dict:
+    """discover_sharded on `world` ranks on the card under `env` (the
+    transport): the CIND count and digest must equal the golden, the plan and
+    skew statistics the JAX package's at as many devices, and the pipeline
+    must have finished its own passes (no fallback to one device)."""
+    torch.cuda.empty_cache()
+    with environ(**env):
+        t0, t_spawn = time.perf_counter(), time.time()
+        out = launch.spawn(sharded_rank, world, device="cuda",
+                           args=(triples, support, kw))
+        launch_s = time.perf_counter() - t0
+        t_done = time.time()
+    stats = out["stats"]
+    want = check_run(f"sharded {label}", out["table"], stats,
+                     {k: GOLDEN[name][k] for k in ("n_cinds", "digest")})
+    got_plan = {k: stats.get(k) for k in ("n_pair_passes", "n_giant_lines",
+                                          "n_giant_pairs", "planned_caps")}
+    if got_plan != GOLDEN_SHARDED[name, world]:
+        raise AssertionError(f"sharded {label}: {got_plan}, the JAX package "
+                             f"gives {GOLDEN_SHARDED[name, world]} at {world} "
+                             f"devices")
+    check_no_fallback(f"sharded {label}", stats.get("degradations") or [],
+                      stats.get("n_pair_passes"))
+    row = dict(phase="sharded", run=label, workload=name, world=world,
+               options=kw, wall_s=out["wall_s"], launch_wall_s=launch_s,
+               rank_startup_s=out["t_enter"] - t_spawn,
+               rank_teardown_s=t_done - out["t_leave"],
+               n_cinds=want["n_cinds"], digest=want["digest"],
+               golden_match=True, plan_match_jax=True,
+               degradations=stats.get("degradations") or [],
+               exchange_wire_bytes=stats.get("exchange_wire_bytes"),
+               dist_backend=stats.get("dist_backend"),
+               staged=stats.get("staged"),
+               stages_host_ms={k: stats.get("stage_host_ms", {}).get(k)
+                               for k in SHARDED_STAGES},
+               idle_share=(None if out["busy_share"] is None
+                           else 1.0 - out["busy_share"]),
+               n_util_samples=out["n_util_samples"],
+               peak_mem_bytes_per_rank=stats.get("peak_mem_bytes_per_rank"),
+               exchange_bytes={k: v["bytes"] for k, v in
+                               stats.get("exchange_sites", {}).items()},
+               total_pairs=stats.get("total_pairs"), **got_plan)
+    emit(row)
+    return row
+
+
+def check_no_fallback(what, degradations, n_pair_passes) -> None:
+    """The sharded pipeline ran its own passes: no step of the ladder fell
+    back to the single-device strategy (same card, same output, so the
+    goldens alone cannot tell)."""
+    if any(d.get("action") == "fallback" for d in degradations):
+        raise AssertionError(f"{what}: fell back to one device: "
+                             f"{degradations}")
+    if not n_pair_passes or int(n_pair_passes) <= 0:
+        raise AssertionError(f"{what}: no pair pass ran ({n_pair_passes})")
+
+
+def sharded_cli(label, argv, want_lines, env, timeout=900) -> dict:
+    """The CLI with --dop in a subprocess (its ranks report through the
+    process's stderr): rc 0 and its output equal to `want_lines`, or raise.
+    Returns its row fields: wall, phases, counters, the card's idle share
+    over the run, host ms per pipeline stage, exchange bytes per site and
+    peak memory per rank."""
+    out = os.path.join(SCRATCH, f"sharded_{label}.txt")
+    with DeviceUtilization() as util:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "rdfind_tpu_torch.programs.rdfind", *argv,
+             "--output", out, "--counters", "1"],
+            capture_output=True, text=True, timeout=timeout,
+            env={**os.environ, **env},
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+    counters, phases = parse_report(proc.stderr)
+    got = open(out).read().splitlines() if os.path.exists(out) else []
+    if proc.returncode != 0 or got != want_lines:
+        raise AssertionError(f"sharded CLI {label}: rc {proc.returncode}, "
+                             f"{len(got)} lines, want {len(want_lines)}: "
+                             f"{proc.stderr[-2000:]}")
+
+    def parsed(key):
+        v = counters.get(f"stat-{key}")
+        return ast.literal_eval(v) if v else None
+
+    sites = parsed("exchange_sites") or {}
+    if counters.get("stat-dist_backend") != env.get(
+            "RDFIND_TORCH_DIST_BACKEND", "nccl"):
+        raise AssertionError(f"sharded CLI {label}: transport "
+                             f"{counters.get('stat-dist_backend')}")
+    check_no_fallback(f"sharded CLI {label}", parsed("degradations") or [],
+                      counters.get("stat-n_pair_passes"))
+    return dict(wall_s=wall, phases_s=phases, n_lines=len(got),
+                golden_match=True,
+                dist_backend=counters.get("stat-dist_backend"),
+                staged=counters.get("stat-staged"),
+                n_pair_passes=counters.get("stat-n_pair_passes"),
+                stages_host_ms=parsed("stage_host_ms"),
+                exchange_bytes={k: v["bytes"] for k, v in sites.items()},
+                exchange_wire_bytes=counters.get("stat-exchange_wire_bytes"),
+                degradations=parsed("degradations") or [],
+                idle_share=(None if util.busy_share is None
+                            else 1.0 - util.busy_share),
+                peak_mem_bytes_per_rank=parsed("peak_mem_bytes_per_rank"),
+                counters=counters, stderr=proc.stderr)
+
+
+def run_sharded_phase(data, paths, s0_lines) -> list:
+    """The sharded pipeline on the card: (a) a one-rank NCCL group, (b) four
+    ranks on the one card over gloo staged through host memory, each on the
+    headline and dbpedia2m (frequent-condition filter on); (c) the CLI with
+    --dop 4 on the headline file, equal to the strategy-0 CLI output; (d) the
+    same preempted after pass 0 under --retry-on-preempt 2."""
+    rows = []
+    fis = dict(use_fis=True)
+    for name in ("headline", REAL_SIZE):
+        triples, support = data[name]
+        rows.append(run_sharded(f"nccl1_{name}", name, triples, support, 1,
+                                fis, {}))
+    staged = dict(RDFIND_TORCH_DIST_BACKEND="gloo",
+                  RDFIND_PAIR_ROW_BUDGET=str(SHARDED_BUDGET))
+    for name in ("headline", REAL_SIZE):
+        triples, support = data[name]
+        rows.append(run_sharded(f"gloo4_{name}", name, triples, support, 4,
+                                fis, staged))
+
+    argv = [paths["nt"], "--traversal-strategy", "0", "--support", "10",
+            "--use-fis", "--dop", "4"]
+    cli_env = dict(staged)
+    run_c = sharded_cli("cli_dop4", argv, s0_lines, cli_env)
+    rows.append(dict(phase="sharded", run="cli_dop4",
+                     **{k: v for k, v in run_c.items()
+                        if k not in ("counters", "stderr")}))
+    emit(rows[-1])
+
+    ckpt = os.path.join(SCRATCH, "sharded_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    fault_env = dict(cli_env, RDFIND_FAULTS="preempt@discover:pass=0",
+                     RDFIND_BACKOFF_BASE_MS="1")
+    run_d = sharded_cli("cli_preempt", argv + [
+        "--checkpoint-dir", ckpt, "--retry-on-preempt", "2"], s0_lines,
+        fault_env)
+    c = run_d["counters"]
+    retries = run_d["stderr"].count("supervisor retry")
+    resumed = int(c.get("stat-resumed_passes", 0))
+    if retries != 1 or c.get("supervisor-attempts") != "1" or resumed <= 0:
+        raise AssertionError(f"sharded preempt: {retries} supervisor retries,"
+                             f" attempts {c.get('supervisor-attempts')}, "
+                             f"resumed passes {resumed}")
+    rows.append(dict(phase="sharded", run="cli_preempt",
+                     supervisor_retries=retries, resumed_passes=resumed,
+                     **{k: v for k, v in run_d.items()
+                        if k not in ("counters", "stderr")}))
+    emit(rows[-1])
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -1865,6 +2124,9 @@ def main() -> int:
 
     # Incremental discovery through the CLI, then the serving process.
     run_delta_phases(data, paths, device, s0_lines)
+
+    # The sharded pipeline: one NCCL rank, four staged gloo ranks, the CLI.
+    run_sharded_phase(data, paths, s0_lines)
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.

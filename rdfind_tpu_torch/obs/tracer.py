@@ -204,21 +204,18 @@ def trace_dir() -> str | None:
 
 
 def default_host_index() -> int:
-    """This process's rank when a torch.distributed group is up, else 0."""
-    try:
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized():
-            return dist.get_rank()
-    except Exception:
-        pass
-    return 0
+    """This process's host index: the launch's (a host, not a rank, as a
+    JAX "process" is one), else 0."""
+    import sys
+    mesh = sys.modules.get("rdfind_tpu_torch.parallel.mesh")
+    return mesh.process_index() if mesh is not None else 0
 
 
 def start(directory: str, host_index: int | None = None) -> Tracer:
     """Enable tracing into `directory` (idempotent per directory).
 
-    `host_index` defaults to the rank of the torch.distributed group when
-    one is up, else 0 — passed explicitly by callers that know better.
+    `host_index` defaults to the launch's host index (0 outside a launch),
+    passed explicitly by callers that know better.
     """
     global _TRACER, _ENABLED
     if _TRACER is not None and _TRACER.dir == directory:

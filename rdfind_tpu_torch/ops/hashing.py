@@ -6,8 +6,10 @@ with ``& MASK32`` after every multiply and add: the low 32 bits of a wrapped
 int64 product are those of the uint32 product, and every shift sees a value in
 [0, 2^32).  Results are int64 tensors holding values in [0, 2^32).
 
-``host_bucket_of`` is the same law on host numpy arrays, the bucket routing
-of the delta engine's evidence layout (``runtime/delta.py``).
+``bucket_of`` routes rows to ranks in the sharded exchanges and ``digest_fold``
+folds a masked row set into one integrity lane; ``host_bucket_of`` is the same
+routing law on host numpy arrays (the delta engine's evidence layout and the
+elastic-resume re-shard).
 """
 
 from __future__ import annotations
@@ -52,3 +54,21 @@ def host_bucket_of(cols, num_buckets: int, seed: int = 0):
         x = ((x ^ (x >> 13)) * 0xC2B2AE35) & MASK32
         h = x ^ (x >> 16)
     return (np.asarray(h, np.int64) % int(num_buckets)).astype(np.int32)
+
+
+def bucket_of(cols, num_buckets: int, seed: int = 0) -> torch.Tensor:
+    """Bucket id in [0, num_buckets) of each row of integer key columns (int32),
+    the JAX package's device routing law bit for bit (``host_bucket_of`` is the
+    same law on numpy arrays)."""
+    return (hash_cols(cols, seed) % int(num_buckets)).to(torch.int32)
+
+
+def digest_fold(cols, valid, seed: int = 0) -> torch.Tensor:
+    """One order-invariant content-digest lane over a masked row set: the
+    per-row ``hash_cols`` mixes, invalid rows zeroed, summed mod 2^32.
+
+    Returned as a 0-d int64 tensor holding the uint32 sum.  A sum over
+    per-rank partials, masked to 32 bits, equals the uint32 wraparound sum over
+    all rows: ranks reduce these lanes as int64 and mask once."""
+    h = torch.where(valid, hash_cols(cols, seed), 0)
+    return h.sum() & MASK32

@@ -121,3 +121,88 @@ def minimize_table(table: CindTable, device) -> CindTable:
     cols = [torch.as_tensor(np.asarray(c, np.int64)).to(device)
             for c in table.columns()[:6]]
     return table.select(keep_mask(cols).cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# Sharded variant: the membership join hash-partitioned over the rank mesh.
+# ---------------------------------------------------------------------------
+
+_MINIMALITY_SEED = 11
+
+
+def _keep_sharded(mesh, cols, valid, capacity: int):
+    """One rank's block: route both sides' keys to their hash owner, join
+    there, pull the verdicts back along the reply.  Returns (keep,
+    overflow)."""
+    from ..parallel import exchange
+    from . import hashing
+
+    n = cols[0].shape[0]
+    fam = {k: v & valid for k, v in _families(cols[0], cols[3]).items()}
+    imp_cols, imp_valid = _implying_keys(cols, fam)
+    qry_cols, qry_valid = _query_keys(cols, fam)
+    imp_cols = [c.to(torch.int32) for c in imp_cols]
+    qry_cols = [c.to(torch.int32) for c in qry_cols]
+    d = mesh.size
+    imp_bkt = hashing.bucket_of(imp_cols, d, seed=_MINIMALITY_SEED)
+    qry_bkt = hashing.bucket_of(qry_cols, d, seed=_MINIMALITY_SEED)
+    recv_imp, recv_imp_v, ovf_i, _ = exchange.route(
+        imp_cols, imp_valid, imp_bkt, mesh, capacity)
+    recv_qry, recv_qry_v, ovf_q, state = exchange.route(
+        qry_cols, qry_valid, qry_bkt, mesh, capacity)
+    tab_cols, _, _, n_tab = segments.padded_unique(recv_imp, recv_imp_v)
+    found = segments.padded_table_index(tab_cols, n_tab, recv_qry,
+                                        recv_qry_v) >= 0
+    back = exchange.route_reply(found.to(torch.int32), state, mesh) == 1
+    seg = [back[i * n:(i + 1) * n] for i in range(_N_SEG)]
+    killed = seg[0] | seg[1] | seg[2] | seg[3] | seg[4] | seg[5]
+    return valid & ~killed, ovf_i + ovf_q
+
+
+def minimize_table_sharded(table: CindTable, mesh) -> CindTable:
+    """Drop implied CINDs with the join hash-partitioned over `mesh`.
+
+    Every rank holds the whole table: each takes its row block, the four
+    coGroups run as one fixed-capacity exchange per side (capacity planned
+    from the expected per-owner volume, doubled on overflow), and the keep
+    mask is gathered back in rank order.  The family pre-filter reads the
+    replicated table, so every rank takes the same branch.
+    """
+    from ..parallel.mesh import host_gather, host_value, make_global
+
+    n = len(table)
+    if n == 0 or not implication_possible(table):
+        return table
+    num_dev = mesh.size
+    if num_dev == 1:
+        return minimize_table(table, mesh.device)
+
+    blk = max(64, segments.pow2_capacity(-(-n // num_dev)))
+    cols = []
+    for c in table.columns()[:6]:
+        a = np.full(num_dev * blk, segments.SENTINEL, np.int32)
+        a[:n] = np.asarray(c, np.int64).astype(np.int32)
+        cols.append(make_global(a, mesh))
+    valid = np.zeros(num_dev * blk, bool)
+    valid[:n] = True
+    valid = make_global(valid, mesh)
+    capacity = segments.pow2_capacity(
+        max(64, (6 * blk) // num_dev + (6 * blk) // (num_dev * 4)))
+    max_retries = 4
+    for _ in range(max_retries):
+        if num_dev * capacity > (1 << 31) - 1:
+            raise RuntimeError(
+                f"minimality exchange capacity {capacity} x {num_dev} "
+                f"devices exceeds the int32 buffer budget; rerun with more "
+                f"devices")
+        keep, ovf = _keep_sharded(mesh, cols, valid, capacity)
+        ovf = int(host_value(ovf))
+        if ovf == 0:
+            break
+        capacity = segments.pow2_capacity(2 * capacity + ovf)
+    else:
+        raise RuntimeError(
+            f"minimality exchange overflow persisted after {max_retries} "
+            f"retries (ovf={ovf})")
+    keep = host_gather(mesh, keep.to(torch.int32)).reshape(-1)[:n] == 1
+    return table.select(keep)

@@ -95,3 +95,25 @@ def emit_pair_indices(pos, length, start_idx, capacity: int,
     j = out_idx - (cum[row] - reps[row]) + 1
     partner = start_idx[row] + (pos[row] + j) % length[row]
     return row, torch.clamp(partner, 0, n - 1), pair_valid
+
+
+def padded_line_layout(line_val, n_valid):
+    """``line_layout`` over a valid prefix: rows [0, n_valid) sorted by join
+    value, the rest garbage.  Invalid rows get length 1 (no pairs).  Returns
+    (pos, length, start_idx, total_pairs) as int64 tensors, the JAX package's
+    fixed-shape layout."""
+    n = line_val.shape[0]
+    dev = line_val.device
+    idx = torch.arange(n, device=dev)
+    valid = idx < n_valid
+    jv = torch.where(valid, line_val, segments.SENTINEL)
+    starts = segments.run_starts([jv])
+    gid = torch.cumsum(starts, 0) - 1
+    counts = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, gid, valid.to(torch.int64))
+    length = torch.where(valid, counts[gid], 1)
+    run_start = torch.cummax(torch.where(starts, idx, 0), 0).values
+    pos = idx - run_start
+    total = (saturating_cumsum(length - 1)[-1] if n
+             else torch.zeros((), dtype=torch.int64, device=dev))
+    return pos, length, run_start, total

@@ -9,12 +9,17 @@ are accepted for compatibility and noted when set.  Incremental discovery
 works as in the JAX package: ``--delta-state DIR`` makes a full run persist its
 base bundle and servable index, ``--delta DIR INSERTS --deletes DELETES``
 replays a change batch against it (exit 66 when the bundle cannot be trusted),
-and ``--console-port`` serves the live run console.  The flags of the sharded
-pipeline and the preemption supervisor are rejected with a message naming
-them; none is silently ignored.
+and ``--console-port`` serves the live run console.  ``--dop N`` runs strategy 0
+sharded over N ranks (one process each: NCCL on the card, gloo with
+``--device cpu``), with the skew-engine flags, ``--no-combinable-join``,
+``--coordinator``/``--num-hosts``/``--host-index`` for several hosts and the
+preemption supervisor ``--retry-on-preempt``.  The flags of the sharded ingest
+are rejected with a message naming them; none is silently ignored.
 
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
         --output cinds.txt [--traversal-strategy 0|1|2|3] [--device cpu]
+    python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
+        --traversal-strategy 0 --dop 4 [--device cpu] [--retry-on-preempt 2]
 """
 
 from __future__ import annotations
@@ -23,18 +28,11 @@ import argparse
 import sys
 
 STRATEGIES = (0, 1, 2, 3)
-_MESH = "the sharded multi-device pipeline (ROADMAP.md, queue 1, item 2)"
-_SUPERVISOR = ("the preemption supervisor, which comes with the sharded "
-               "pipeline (ROADMAP.md, queue 1, item 2a)")
+_ITEM_2B = "ROADMAP.md, queue 1, item 2b"
+_INGEST = f"the sharded multi-host ingest ({_ITEM_2B})"
 # Flags of the JAX package's CLI whose machinery the port does not have yet,
 # rejected with a pointer to the work queue.
-UNPORTED = {
-    "--dop": _MESH, "--coordinator": _MESH, "--num-hosts": _MESH,
-    "--host-index": _MESH, "--sharded-ingest": _MESH, "--interning": _MESH,
-    "--rebalance-strategy": _MESH, "--rebalance-max-load": _MESH,
-    "--rebalance-threshold": _MESH, "--no-combinable-join": _MESH,
-    "--retry-on-preempt": _SUPERVISOR,
-}
+UNPORTED = {"--sharded-ingest": _INGEST, "--interning": _INGEST}
 # Accepted for compatibility: behaviour built in or subsumed, noted when set.
 _NO_EFFECT = (
     ("no_bulk_merge", "merging is always windowed segment-sum here"),
@@ -143,6 +141,39 @@ def build_parser() -> argparse.ArgumentParser:
                         "printed to stderr; RDFIND_CONSOLE_PORT is the env "
                         "form)")
     p.add_argument("--counters", type=int, default=0, dest="counter_level")
+    p.add_argument("--dop", type=int, default=1,
+                   help="degree of parallelism = number of ranks in the mesh "
+                        "(strategy 0; one process per rank: one GPU each on "
+                        "the card, gloo processes with --device cpu)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host run: the rendezvous store's address on "
+                        "host 0 (every host runs the same command with its "
+                        "own --host-index)")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="multi-host run: total number of hosts")
+    p.add_argument("--host-index", type=int, default=0,
+                   help="multi-host run: this host's index in [0, "
+                        "num-hosts)")
+    p.add_argument("--no-combinable-join", action="store_true",
+                   help="plan ablation: ship raw join candidates instead of "
+                        "combiner-deduped ones (sharded runs; same output)")
+    p.add_argument("--rebalance-strategy", type=int, default=1,
+                   choices=(1, 2),
+                   help="split-line dependent ownership: 1 = hash-slice, "
+                        "2 = contiguous range-slice (sharded runs)")
+    p.add_argument("--rebalance-max-load", type=float, default=10000.0 * 10000,
+                   help="absolute quadratic load above which a join line "
+                        "always splits across ranks (sharded runs)")
+    p.add_argument("--rebalance-threshold", type=float, default=1.0,
+                   help="scales the average-load factor above which a join "
+                        "line splits (sharded runs; default 1.0)")
+    p.add_argument("--retry-on-preempt", type=int, default=0, metavar="N",
+                   help="preemption supervisor: on a preempted attempt (or "
+                        "an escaped fallback request), back off and "
+                        "relaunch the ranks up to N times, resuming from "
+                        "the progress snapshots of --checkpoint-dir, "
+                        "re-sharded when the rank count changed "
+                        "(RDFIND_RETRY_ON_PREEMPT is the env form)")
     for flag in ("--find-frequent-captures", "--no-bulk-merge",
                  "--rebalance-join", "--apply-hash",
                  "--hash-dictionary", "--only-read-compat",
@@ -182,8 +213,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force the pure-Python ingest path")
     p.add_argument("--checkpoint-dir", default=None,
                    help="directory for stage-boundary checkpoints (ingest and "
-                        "discover); re-runs with unchanged inputs/flags "
-                        "resume from them.  Fault-tolerance knobs ride the "
+                        "discover) and, on sharded runs, per-pass progress "
+                        "snapshots; re-runs with unchanged inputs/flags "
+                        "resume from them (a preempted sharded discover "
+                        "replays only its unfinished passes).  "
+                        "Fault-tolerance knobs ride the "
                         "environment: RDFIND_STRICT=1 fail-fast, "
                         "RDFIND_FAULTS=... deterministic fault injection "
                         "(see README, 'Fault tolerance & resume')")
@@ -191,6 +225,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where to run (default cuda; cpu runs the kernels' "
                         "plain PyTorch versions)")
     return p
+
+
+def _local_ranks(device: str) -> int:
+    """Ranks one host runs by default: one per GPU (one on the CPU)."""
+    if device == "cpu":
+        return 1
+    import torch
+    return max(torch.cuda.device_count(), 1)
 
 
 def main(argv=None) -> int:
@@ -225,7 +267,31 @@ def main(argv=None) -> int:
             print("note: --delta-state is ignored with --delta (the run "
                   "advances the base bundle in place)", file=sys.stderr)
             args.delta_state = None
-    from ..runtime import delta, driver
+    if args.coordinator is None and (args.num_hosts != 1
+                                     or args.host_index != 0):
+        parser.error("--num-hosts/--host-index require --coordinator "
+                     "(without it this would run a full independent "
+                     "single-host job)")
+    if args.coordinator is not None:
+        if not 0 <= args.host_index < args.num_hosts:
+            parser.error(f"--host-index {args.host_index} is outside [0, "
+                         f"{args.num_hosts})")
+        if args.dop == 1:
+            args.dop = args.num_hosts * _local_ranks(args.device)
+        if args.dop % args.num_hosts:
+            parser.error(f"--dop {args.dop} does not divide over "
+                         f"{args.num_hosts} hosts")
+    if args.dop < 1:
+        parser.error(f"--dop must be >= 1, got {args.dop}")
+    if args.dop > 1 and args.traversal_strategy != 0:
+        parser.error(f"--dop {args.dop} runs strategy 0 only; the sharded "
+                     f"strategies 1-3 are not ported yet ({_ITEM_2B}); pass "
+                     f"--traversal-strategy 0")
+    if args.dop > 1 and args.delta_base:
+        parser.error("--dop is not supported with --delta (the delta engine "
+                     "replays host-side against the base bundle)")
+    from ..parallel import launch
+    from ..runtime import delta, driver, faults
 
     cfg = driver.Config(
         input_paths=args.inputs,
@@ -266,6 +332,15 @@ def main(argv=None) -> int:
         delta_state=args.delta_state,
         delete_paths=args.deletes,
         device=args.device,
+        n_devices=args.dop,
+        retry_on_preempt=args.retry_on_preempt,
+        rebalance_strategy=args.rebalance_strategy,
+        rebalance_threshold=args.rebalance_threshold,
+        rebalance_max_load=args.rebalance_max_load,
+        combinable_join=not args.no_combinable_join,
+        coordinator=args.coordinator,
+        num_hosts=args.num_hosts,
+        host_index=args.host_index,
     )
     for name, why in _NO_EFFECT:
         v = getattr(args, name)
@@ -280,6 +355,17 @@ def main(argv=None) -> int:
         print(f"rdfind: delta base unusable ({e}); re-run a full build "
               f"with --delta-state to rebuild the bundle", file=sys.stderr)
         return 66  # EX_NOINPUT: the base bundle cannot serve this run
+    except faults.Preempted as e:
+        # In-flight progress was flushed before the ranks exited; the same
+        # command resumes the run.
+        print(f"rdfind: preempted ({e}); re-run with the same "
+              f"--checkpoint-dir to resume from the last committed pass "
+              f"(or pass --retry-on-preempt N to let the launcher retry)",
+              file=sys.stderr)
+        return 75  # EX_TEMPFAIL: transient, retry the same invocation
+    except launch.RankFailed as e:
+        print(f"rdfind: {e}", file=sys.stderr)
+        return 1
     if not (cfg.output_file or cfg.collect_result):
         print(f"Detected {len(result.table)} CINDs.")
     return 0

@@ -317,9 +317,13 @@ class ProgressStore:
     a different mesh, and the stored pass count may be adopted.  What shapes
     the partition rides in the snapshot itself (encode_progress meta)."""
 
-    def __init__(self, store: CheckpointStore, base_fp: str):
+    def __init__(self, store: CheckpointStore, base_fp: str,
+                 writer: bool = True):
         self.store = store
         self.base_fp = base_fp
+        # A host's ranks all read the snapshots; only one of them (its local
+        # rank 0) writes them.
+        self.writer = writer
         self._cond = threading.Condition()
         self._pending: dict = {}    # stage -> (fp, arrays), newest only
         self._inflight: str | None = None  # stage the writer holds right now
@@ -346,6 +350,8 @@ class ProgressStore:
         """Queue a snapshot for the writer thread.  Snapshots are cumulative:
         replacing a stage's pending entry loses nothing but an already-stale
         intermediate state."""
+        if not self.writer:
+            return
         arrays = encode_progress(parts, num_dev=num_dev, n_pass=n_pass)
         self._stages.add(stage)
         with self._cond:

@@ -19,8 +19,15 @@ the live run console for the run's duration.  ``--delta-state`` makes a full run
 persist the delta base bundle and its servable index; ``--delta`` replays a
 change batch against such a bundle (``runtime/delta.py``), and
 ``RDFIND_SERVE_INDEX`` names one more directory every run writes its index to
-(``runtime/serving.py``).  The sharded path and its preemption supervisor are
-not here.
+(``runtime/serving.py``).
+
+``--dop N`` runs strategy 0 sharded over N ranks (``models/sharded.py``): the
+launcher (``parallel/launch.py``) spawns one process per rank, each runs this
+driver SPMD, global rank 0 writes the run's sinks and each host's local rank 0
+its host-level files (checkpoints, progress snapshots, trace, metrics export,
+heartbeat).  The preemption supervisor (``--retry-on-preempt``) runs in the
+launcher's parent: a preempted attempt's ranks exit 75, and the parent backs
+off and relaunches them, resuming from the progress snapshots.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..obs import memory as obs_memory
 from ..obs import console, flightrec, integrity, metrics, report, tracer
 from ..ops import frequency, segments
 from ..ops.emission import emit_join_candidates
+from ..parallel import mesh as mesh_mod
 from . import checkpoint, delta, serving
 
 # Strategy ids follow the reference: 0 = all-at-once, 1 = small-to-large,
@@ -100,6 +108,17 @@ class Config:
     delta_state: str | None = None
     delete_paths: list[str] = dataclasses.field(default_factory=list)
     device: str | None = None  # None: the CUDA card
+    # The sharded pipeline (--dop > 1, strategy 0) and its supervisor.
+    n_devices: int = 1  # ranks in the mesh (the reference's -dop)
+    retry_on_preempt: int = 0  # supervisor retry budget
+    rebalance_strategy: int = 1  # 1 = hash-slice, 2 = range-slice ownership
+    rebalance_threshold: float = 1.0  # scales the avg-load split factor
+    rebalance_max_load: float = 10_000.0 * 10_000.0  # absolute split trigger
+    combinable_join: bool = True  # False: ship raw join candidates
+    coordinator: str | None = None  # "host:port" of the multi-host store
+    num_hosts: int = 1
+    host_index: int = 0
+    attempt: int = 0  # supervisor attempt this run is (set by the parent)
 
 
 @dataclasses.dataclass
@@ -264,8 +283,8 @@ def describe_plan(cfg: Config) -> dict:
         sinks.append("collect-result (stdout)")
     return {
         "strategy": cfg.traversal_strategy,
-        "n_devices": 1,
-        "backend": "single-device",
+        "n_devices": cfg.n_devices,
+        "backend": "sharded" if cfg.n_devices > 1 else "single-device",
         "min_support": cfg.min_support,
         "projections": cfg.projections,
         "stages": {"ingest": pre, "discover": discover, "sinks": sinks},
@@ -410,11 +429,60 @@ def _mine_fcs(cfg: Config, ids, dev, counters: dict) -> None:
             counters["association-rules"] = len(rules[0])
 
 
+def skew_from_cfg(cfg: Config):
+    """The one cfg -> SkewPolicy mapping (defaults compare equal to
+    sharded.DEFAULT_SKEW)."""
+    from ..models import sharded
+    return sharded.SkewPolicy(
+        strategy=cfg.rebalance_strategy,
+        factor=sharded.REBALANCE_FACTOR * cfg.rebalance_threshold,
+        max_load=cfg.rebalance_max_load)
+
+
+def _discover_sharded(cfg: Config, ids, mesh, stats: dict, progress):
+    """Strategy 0 sharded over the launch's mesh."""
+    from ..models import sharded
+    if cfg.traversal_strategy != 0:
+        raise ValueError(
+            f"traversal strategy {cfg.traversal_strategy} is not ported to "
+            f"the sharded pipeline yet (ROADMAP.md, queue 1, item 2b); "
+            f"--dop > 1 runs strategy 0")
+    if cfg.merge_window_size > 0:
+        print("note: --merge-window-size only affects the single-device "
+              "chunked backend; the sharded run sizes its merge buffers from "
+              "measured loads", file=sys.stderr)
+    if cfg.explicit_threshold != -1:
+        print("note: --explicit-threshold configures the single-device "
+              "small-to-large strategy only; sharded runs bound 1/1 memory "
+              "via planned capacities + dep-slice passes "
+              "(RDFIND_PAIR_ROW_BUDGET)", file=sys.stderr)
+    if cfg.balanced_11:
+        print("note: --balanced-overlap-candidates is single-device only; "
+              "the sharded pair phase splits emission across ranks "
+              "(giant-line slicing)", file=sys.stderr)
+    use_ars = cfg.use_association_rules and cfg.use_frequent_item_set
+    return sharded.discover_sharded(
+        ids, cfg.min_support, mesh=mesh, skew=skew_from_cfg(cfg),
+        combine=cfg.combinable_join, progress=progress,
+        projections=cfg.projections, use_fis=cfg.use_frequent_item_set,
+        use_ars=use_ars, clean_implied=cfg.clean_implied, stats=stats)
+
+
 def _discover(cfg: Config, ids, dev, stats: dict) -> CindTable:
     strategy = STRATEGIES.get(cfg.traversal_strategy)
     if strategy is None:
         raise ValueError(f"unknown traversal strategy {cfg.traversal_strategy} "
                          f"(one of {sorted(STRATEGIES)})")
+    try:
+        from ..models import sharded
+        if (skew_from_cfg(cfg) != sharded.DEFAULT_SKEW
+                or not cfg.combinable_join):
+            print("note: --rebalance-*/--no-combinable-join only affect "
+                  "sharded runs (--dop > 1)", file=sys.stderr)
+    except ValueError as e:
+        print(f"note: invalid rebalance settings ignored on this "
+              f"single-device run; a sharded run (--dop > 1) would reject "
+              f"them ({e})", file=sys.stderr)
     kwargs = {}
     if cfg.explicit_threshold != -1:
         if not _half_approx_active(cfg):
@@ -440,13 +508,74 @@ def _discover(cfg: Config, ids, dev, stats: dict) -> CindTable:
         stats=stats, device=dev, **kwargs)
 
 
+def _mesh():
+    return mesh_mod.current()
+
+
+def _is_primary() -> bool:
+    """Global rank 0 (or no launch): writes the run's sinks and reports."""
+    m = _mesh()
+    return m is None or m.primary
+
+
+def _is_host_primary() -> bool:
+    """A host's local rank 0 (or no launch): writes the host's files."""
+    m = _mesh()
+    return m is None or m.host_primary
+
+
+def _sharded(cfg: Config) -> bool:
+    return (cfg.n_devices > 1 or cfg.coordinator is not None) \
+        and not cfg.delta_base
+
+
 def run(cfg: Config) -> RunResult:
+    """One run: in this process on one device, or, for --dop > 1, on the
+    ranks the launcher spawns, under the preemption supervisor."""
+    if _sharded(cfg) and _mesh() is None:
+        return _run_launched(cfg)
+    m = _mesh()
+    # A launched rank records its transport at the start of the run.
+    transport = ({} if m is None else
+                 dict(dist_backend=m.backend, staged=int(m.staged)))
     with _obs_session(cfg):
         with _flush_progress_on_signal(bool(cfg.checkpoint_dir)):
             with tracer.span("run", cat=tracer.CAT_RUN,
-                             strategy=cfg.traversal_strategy, n_devices=1,
-                             attempt=0):
+                             strategy=cfg.traversal_strategy,
+                             n_devices=cfg.n_devices, attempt=cfg.attempt,
+                             **transport):
                 return _run_profiled(cfg)
+
+
+def _rank_run(mesh, cfg: Config) -> RunResult:
+    """Entry point of one rank of a launched run."""
+    out = run(cfg)
+    # The parent needs the table and the reports; the triples stay here.
+    return dataclasses.replace(out, triples=None)
+
+
+def _run_launched(cfg: Config) -> RunResult:
+    """Spawn the ranks (this host's share of --dop) under the supervisor."""
+    from ..parallel import launch
+    if cfg.n_devices % max(cfg.num_hosts, 1):
+        raise ValueError(f"--dop {cfg.n_devices} does not divide over "
+                         f"{cfg.num_hosts} hosts")
+    world_local = max(cfg.n_devices // max(cfg.num_hosts, 1), 1)
+    device = devices.resolve(cfg.device).type
+
+    def args_for(attempt: int, local: int):
+        return (dataclasses.replace(
+            cfg, attempt=attempt, n_devices=local * max(cfg.num_hosts, 1)),)
+
+    marker_dirs = [d for d in (os.environ.get("RDFIND_WATCHDOG_DIR"),
+                               cfg.trace_dir or os.environ.get("RDFIND_TRACE"))
+                   if d]
+    return launch.supervise(_rank_run, world_local, args_for=args_for,
+                            budget=launch.retry_budget(cfg.retry_on_preempt),
+                            device=device, coordinator=cfg.coordinator,
+                            num_hosts=cfg.num_hosts,
+                            host_index=cfg.host_index,
+                            marker_dirs=marker_dirs)
 
 
 @contextlib.contextmanager
@@ -499,6 +628,9 @@ def _obs_session(cfg: Config):
                     or os.environ.get("RDFIND_METRICS_FILE") or None)
     console_port = (cfg.console_port if cfg.console_port is not None
                     else console.env_port())
+    if not _is_host_primary():
+        # Host-level files and the console belong to the host's local rank 0.
+        trace_dir = metrics_file = console_port = None
     obs_memory.reset()
     flightrec.configure()  # re-read RDFIND_FLIGHTREC at every run start
     flightrec.reset()
@@ -530,7 +662,8 @@ def _obs_session(cfg: Config):
         if trace_dir:
             tracer.stop()
             try:
-                report.export_chrome_trace(trace_dir)
+                if _is_primary():
+                    report.export_chrome_trace(trace_dir)
             except OSError as e:
                 print(f"warning: trace export failed ({e}); the raw "
                       f"event files remain in {trace_dir}", file=sys.stderr)
@@ -544,7 +677,7 @@ def _run_profiled(cfg: Config) -> RunResult:
     the card's when the run computes on one), written as a Chrome trace
     ``profile.json`` into the directory; the tracer's spans appear in it as
     ``record_function`` ranges of the same names."""
-    if not cfg.profile_dir:
+    if not cfg.profile_dir or not _is_host_primary():
         return _run(cfg)
     from torch.profiler import ProfilerActivity, profile
 
@@ -562,9 +695,10 @@ def _run(cfg: Config) -> RunResult:
     phases = _Phases()
     counters: dict = {}
     stats: dict = {}
-    dev = devices.resolve(cfg.device)
+    mesh = _mesh()
+    dev = mesh.device if mesh is not None else devices.resolve(cfg.device)
 
-    if cfg.print_plan:
+    if cfg.print_plan and _is_primary():
         print(json.dumps(describe_plan(cfg), indent=2))
     if cfg.delta_base:
         # Incremental discovery: the change batch replays against the
@@ -574,10 +708,15 @@ def _run(cfg: Config) -> RunResult:
     tracer.set_status(mode="full")
 
     use_native = _native_ingest(cfg)
-    ckpt = ingest_fp = discover_fp = None
+    ckpt = ingest_fp = discover_fp = progress = None
     if cfg.checkpoint_dir and not cfg.only_read:
         ckpt = checkpoint.CheckpointStore(cfg.checkpoint_dir)
         ingest_fp, discover_fp = _checkpoint_fps(cfg, use_native)
+        if mesh is not None:
+            # Mid-discover per-pass snapshots (sharded runs): a preempted
+            # discover resumes from its last committed pass.
+            progress = checkpoint.ProgressStore(
+                ckpt, discover_fp, writer=_is_host_primary())
 
     ingested = None
     if ckpt is not None:
@@ -604,7 +743,8 @@ def _run(cfg: Config) -> RunResult:
                     arrays["distinct_triples"] = np.int64(
                         counters["distinct-triples"])
                 _safe_save(ckpt, "ingest", ingest_fp, arrays, counters)
-            phases.run("checkpoint-ingest", save_ingest)
+            if _is_host_primary():
+                phases.run("checkpoint-ingest", save_ingest)
     ids, dictionary = ingested
     counters["distinct-values"] = len(dictionary)
 
@@ -612,8 +752,10 @@ def _run(cfg: Config) -> RunResult:
         # An extra pass over the unfiltered join, before the --do-only-join
         # return, as in the reference.
         def histogram():
-            for size, times in _join_histogram(ids, cfg.projections, dev):
-                print(f"Join size {size} encountered {times}x")
+            hist = _join_histogram(ids, cfg.projections, dev)
+            if _is_primary():
+                for size, times in hist:
+                    print(f"Join size {size} encountered {times}x")
         phases.run("join-histogram", histogram)
 
     if cfg.only_join:
@@ -633,24 +775,45 @@ def _run(cfg: Config) -> RunResult:
         print("note: --use-ars has no effect without --use-fis "
               "(association rules are mined from the frequent-item sets)",
               file=sys.stderr)
+    # Per-host stage file when several hosts may share a checkpoint dir.
+    discover_stage = ("discover" if mesh is None or mesh.num_hosts == 1
+                      else f"discover-host{mesh.host_index}")
     table = None
     if ckpt is not None:
-        stored = ckpt.load("discover", discover_fp)
-        if stored is not None:
+        stored = ckpt.load(discover_stage, discover_fp)
+        # Discovery is collective: resume only when every rank hit, or the
+        # misses would enter the collectives alone.
+        if _all_ranks_agree(stored is not None):
             table = phases.run("resume-discover",
                                lambda: checkpoint.decode_cinds(stored))
             metrics.restore(stats, checkpoint.decode_stats(stored))
             counters["resumed-discover"] = 1
     if table is None:
-        table = phases.run("discover",
-                           lambda: _discover(cfg, ids, dev, stats))
-        if ckpt is not None:
+        if mesh is not None:
+            table = phases.run("discover", lambda: _discover_sharded(
+                cfg, ids, mesh, stats, progress))
+        else:
+            table = phases.run("discover",
+                               lambda: _discover(cfg, ids, dev, stats))
+        if ckpt is not None and _is_host_primary():
             def save_discover():
                 arrays = checkpoint.encode_cinds(table)
                 arrays.update(checkpoint.encode_stats(stats))
-                _safe_save(ckpt, "discover", discover_fp, arrays, counters)
+                _safe_save(ckpt, discover_stage, discover_fp, arrays,
+                           counters)
+                if progress is not None:
+                    progress.cleanup()  # the stage supersedes the passes
             phases.run("checkpoint-discover", save_discover)
     counters["cind-counter"] = len(table)
+    if cfg.attempt:
+        # A supervisor re-entry: the parent relaunched this attempt.
+        counters["supervisor-attempts"] = cfg.attempt
+        metrics.counter_add(None, "preempt_supervisor_retries", cfg.attempt)
+        metrics.struct_update(None, "elastic_resume",
+                              supervisor_attempts=cfg.attempt)
+    if not _is_primary():
+        # The run's sinks and reports belong to global rank 0.
+        return RunResult(table, dictionary, ids, counters, phases.timings)
     base_meta: dict = {}
     if cfg.delta_state:
         # Persist the base bundle (generation 0) the incremental runs load.
@@ -671,6 +834,18 @@ def _run(cfg: Config) -> RunResult:
     _emit_sinks(cfg, phases, counters, table, dictionary, stats, ids, dev)
     _report(cfg, counters, phases.timings)
     return RunResult(table, dictionary, ids, counters, phases.timings)
+
+
+def _all_ranks_agree(flag: bool) -> bool:
+    """True iff `flag` is True on every rank of the launch (one tiny
+    all-reduce, deadman-armed); the flag itself outside a launch."""
+    from . import watchdog
+    m = _mesh()
+    if m is None or m.size == 1:
+        return flag
+    with watchdog.collective("allgather", 8 * m.size):
+        return bool(m.pmin(torch.tensor(int(flag), dtype=torch.int64,
+                                        device=m.device)))
 
 
 def _emit_sinks(cfg: Config, phases: _Phases, counters: dict, table,
@@ -782,7 +957,9 @@ def _send_remote(cfg: Config, table, dictionary, counters: dict) -> None:
 
 def _report(cfg: Config, counters: dict, timings: dict) -> None:
     """Post-run statistics: the counter lines, the timing lines and the CSV
-    line."""
+    line (global rank 0 only)."""
+    if not _is_primary():
+        return
     try:
         import resource
         counters["peak-rss-mb"] = (

@@ -13,7 +13,11 @@ Each clause is ``site[:key=value]*``.  Recognized keys:
   nth=K     fire on the K-th hit of the site (1-based; default 1);
   times=N   how many times to fire after the trigger (default 1; -1 = forever);
   p=F       fire each hit with probability F from a SEEDED rng
-            (RDFIND_FAULT_SEED, default 0) — deterministic across runs.
+            (RDFIND_FAULT_SEED, default 0) — deterministic across runs;
+  rank=R    fire only on global rank R of a launch (every rank when absent);
+  hard      (wedge sites) block in one C-level call that the watchdog's
+            Preempted cannot interrupt, as a wedged gloo or NCCL call does,
+            so only the watchdog's hard exit (75) ends it.
 
 The plan is parsed once per distinct env string and keeps per-site hit
 counters, so a resumed run in the same process does not re-fire an exhausted
@@ -33,8 +37,8 @@ Host pulls get bounded retry with exponential backoff + jitter
 RDFIND_BACKOFF_MAX_MS), with telemetry accumulated module-wide
 (``pull_stats``).
 
-The JAX package's ``runtime/faults.py``, copied (its wedge helper belongs to
-the collective watchdog, which is not ported).  Import-light: stdlib and the
+The JAX package's ``runtime/faults.py``, copied.  ``maybe_wedge`` is the
+simulated wedged collective the collective watchdog converts into Preempted.  Import-light: stdlib and the
 stdlib-only obs package.
 """
 
@@ -115,6 +119,20 @@ class FaultSpec:
     prob: float | None = None    # p=F probabilistic firing (seeded rng)
     hits: int = 0                # hits seen (matching the pass constraint)
     fired: int = 0               # times actually fired
+    # The port's own keys, plain attributes: the fields are the JAX
+    # package's, so a spec's fields equal JAX's spec of the same clause.
+    rank = None                  # rank=R constraint
+    hard = False                 # wedge: C-level block (hard exit only)
+
+
+# The global rank of this process in a launch (set by the launcher); the
+# rank=R constraint compares against it.
+_RANK = 0
+
+
+def set_rank(rank: int) -> None:
+    global _RANK
+    _RANK = int(rank)
 
 
 def _parse_clause(clause: str) -> FaultSpec:
@@ -138,6 +156,12 @@ def _parse_clause(clause: str) -> FaultSpec:
             spec.times = int(val)
         elif key == "p":
             spec.prob = float(val)
+        elif key == "rank":
+            spec.rank = int(val)
+        elif key == "hard" and val.strip() in ("", "1"):
+            if not site.startswith("wedge@"):
+                raise ValueError(f"hard applies to wedge@ sites: {clause!r}")
+            spec.hard = True
         else:
             raise ValueError(f"unknown fault key {key!r} in {clause!r}")
     return spec
@@ -157,11 +181,17 @@ class FaultPlan:
 
     def fires(self, site: str, pass_idx: int | None = None) -> bool:
         """Whether an armed fault at `site` fires now (and consume it)."""
-        fired = False
+        return bool(self.fire(site, pass_idx))
+
+    def fire(self, site: str, pass_idx: int | None = None) -> list:
+        """The specs at `site` that fire now (consumed)."""
+        fired = []
         for s in self.specs:
             if s.site != site:
                 continue
             if s.pass_idx is not None and pass_idx != s.pass_idx:
+                continue
+            if s.rank is not None and s.rank != _RANK:
                 continue
             s.hits += 1
             if s.hits < s.nth:
@@ -171,7 +201,7 @@ class FaultPlan:
             if s.prob is not None and self._rng.random() >= s.prob:
                 continue
             s.fired += 1
-            fired = True
+            fired.append(s)
         return fired
 
 
@@ -193,6 +223,28 @@ def active_plan() -> FaultPlan | None:
         seed = int(os.environ.get("RDFIND_FAULT_SEED", "0"))
         _PLAN = FaultPlan(src, seed=seed) if src else None
     return _PLAN
+
+
+def export_state():
+    """The active plan's hit/fire counters and rng state, so a relaunched
+    rank (the launcher's supervisor starts fresh processes) carries on the
+    plan where the preempted attempt left it, as one process re-entering the
+    run would: an exhausted one-shot fault stays exhausted."""
+    plan = active_plan()
+    if plan is None:
+        return None
+    return (plan.spec_str, [(s.hits, s.fired) for s in plan.specs],
+            plan._rng.getstate())
+
+
+def import_state(state) -> None:
+    """Restore export_state()'s counters into the plan of the same spec."""
+    plan = active_plan()
+    if plan is None or state is None or state[0] != plan.spec_str:
+        return
+    for s, (hits, fired) in zip(plan.specs, state[1]):
+        s.hits, s.fired = hits, fired
+    plan._rng.setstate(state[2])
 
 
 def reset() -> None:
@@ -221,6 +273,21 @@ def maybe_preempt(site: str, pass_idx: int | None = None) -> None:
         raise Preempted(f"injected preemption at {site}"
                         + (f" (pass={pass_idx})" if pass_idx is not None
                            else ""))
+
+
+def maybe_wedge(site: str, pass_idx: int | None = None) -> None:
+    """Simulated wedged collective: when an armed ``wedge@<site>`` fault
+    fires, this rank blocks inside the collective's armed watchdog window
+    (watchdog.wedge_wait) until the deadman converts the hang into
+    Preempted.  Called from inside watchdog.collective()'s guard, so the
+    timer is always armed around the sleep.  A ``hard`` wedge blocks where
+    the watchdog's Preempted cannot reach it, so only its hard exit ends it."""
+    plan = active_plan()
+    fired = plan.fire(f"wedge@{site}", pass_idx) if plan is not None else []
+    if fired:
+        from . import watchdog
+
+        watchdog.wedge_wait(site, hard=any(s.hard for s in fired))
 
 
 def overflow_injected(site: str, pass_idx: int | None = None) -> bool:
@@ -305,20 +372,25 @@ def _backoff_ms(attempt: int) -> float:
     return raw * (0.5 + 0.5 * _BACKOFF_RNG.random())
 
 
-def guarded_pull(fn, what: str = "host_pull"):
+def guarded_pull(fn, what: str = "host_pull", gate: bool = True):
     """Run a blocking host pull with the host_pull fault gate and bounded
     retry on failure (exponential backoff + jitter).
 
     Pulls are pure reads of device state, so re-running one is always safe.
+    `fn` is a local copy and never a collective: a retry is decided on one
+    rank, and a collective re-entered by one rank alone deadlocks its peers.
     Preempted and FallbackRequired pass through (they are control flow, not
     transient failures); everything else gets RDFIND_PULL_RETRIES attempts
-    (default 3) unless RDFIND_STRICT=1 (one attempt, fail fast).
+    (default 3) unless RDFIND_STRICT=1 (one attempt, fail fast).  `gate`
+    False skips the host_pull fault site (the second copy of one logical
+    pull, which the site counts once).
     """
     tries = 1 if strict_mode() else max(
         1, int(os.environ.get("RDFIND_PULL_RETRIES", "3")))
     for attempt in range(tries):
         try:
-            maybe_fail("host_pull")
+            if gate:
+                maybe_fail("host_pull")
             return fn()
         except (Preempted, FallbackRequired):
             raise

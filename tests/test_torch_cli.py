@@ -98,22 +98,23 @@ def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
 
 
 @pytest.mark.parametrize("argv,needle", [
-    (["--traversal-strategy", "0", "--dop", "2"], "--dop"),
-    (["--coordinator", "127.0.0.1:1"], "--coordinator"),
+    # The sharded pipeline's flags are ported: their misuse is rejected.
+    (["--traversal-strategy", "1", "--dop", "2"], "item 2b"),
+    (["--coordinator", "127.0.0.1:1", "--host-index", "3"], "--host-index"),
     (["--num-hosts", "2"], "--num-hosts"),
     (["--host-index", "1"], "--host-index"),
     (["--sharded-ingest"], "--sharded-ingest"),
     (["--interning", "replicated"], "--interning"),
-    (["--rebalance-strategy", "2"], "--rebalance-strategy"),
-    (["--rebalance-max-load=5"], "--rebalance-max-load"),
-    (["--rebalance-threshold", "2"], "--rebalance-threshold"),
-    (["--no-combinable-join"], "--no-combinable-join"),
+    (["--rebalance-strategy", "3"], "--rebalance-strategy"),
+    (["--rebalance-max-load=x"], "--rebalance-max-load"),
+    (["--rebalance-threshold", "x"], "--rebalance-threshold"),
+    (["--no-combinable-join=1"], "--no-combinable-join"),
     # The delta and console flags are ported: their misuse is rejected.
     (["--delta", "bundle", "--only-read"], "--delta"),
     (["--delta-state"], "--delta-state"),
     (["--deletes", "d.nt"], "--deletes"),
     (["--console-port", "x"], "--console-port"),
-    (["--retry-on-preempt", "2"], "--retry-on-preempt"),
+    (["--retry-on-preempt", "x"], "--retry-on-preempt"),
     (["--traversal-strategy", "0", "--projection", "x"], "--projection"),
 ])
 def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
@@ -124,13 +125,34 @@ def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
 
 
 def test_unported_holds_exactly_the_fifteen_flags():
-    assert sorted(tcli.UNPORTED) == sorted([
-        "--dop", "--coordinator", "--num-hosts", "--host-index",
-        "--sharded-ingest", "--interning", "--rebalance-strategy",
-        "--rebalance-max-load", "--rebalance-threshold",
-        "--no-combinable-join", "--retry-on-preempt"])
-    assert all("ROADMAP.md, queue 1, item" in why
+    """Only the sharded ingest's two flags are left, pointing to item 2b."""
+    assert sorted(tcli.UNPORTED) == ["--interning", "--sharded-ingest"]
+    assert all("ROADMAP.md, queue 1, item 2b" in why
                for why in tcli.UNPORTED.values())
+
+
+@pytest.mark.parametrize("strategy", ["1", "2", "3"])
+def test_dop_with_an_unported_strategy_names_item_2b(nt_file, capsys,
+                                                      strategy):
+    with pytest.raises(SystemExit) as exc:
+        tcli.main([nt_file, "--traversal-strategy", strategy, "--dop", "4",
+                   "--device", "cpu"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "item 2b" in err and "--traversal-strategy 0" in err
+
+
+def test_sharded_flags_match_the_jax_cli():
+    """--dop and the skew, supervisor and multi-host flags: the JAX CLI's
+    defaults and choices."""
+    jargs = {a.dest: a for a in jcli.build_parser()._actions}
+    targs = {a.dest: a for a in tcli.build_parser()._actions}
+    for dest in ("dop", "coordinator", "num_hosts", "host_index",
+                 "no_combinable_join", "rebalance_strategy",
+                 "rebalance_max_load", "rebalance_threshold",
+                 "retry_on_preempt"):
+        assert targs[dest].default == jargs[dest].default, dest
+        assert targs[dest].choices == jargs[dest].choices, dest
 
 
 @pytest.mark.parametrize("flag", ["--checkpoint-dir", "--trace",

@@ -563,3 +563,68 @@ def test_serve_never_initialises_cuda(cuda, tmp_path):
         text=True, timeout=120, cwd=repo)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["rc", "0", "cuda_initialized", "False"]
+
+
+def _sharded_case():
+    return synth.generate_triples(3000, seed=5), 3
+
+
+def _ran_its_own_passes(stats):
+    """No fallback to the single-device strategy, which gives the same
+    table."""
+    assert not any(d["action"] == "fallback"
+                   for d in stats.get("degradations", []))
+    assert stats["n_pair_passes"] > 0
+
+
+def test_sharded_on_one_nccl_rank(cuda, monkeypatch):
+    """discover_sharded on a one-rank NCCL group equals the single-device
+    AllAtOnce on the card (exact), names its transport, and plans as one
+    gloo CPU rank does."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv(mesh.BACKEND_ENV, raising=False)
+    t, s = _sharded_case()
+    want = allatonce.discover(t, s, use_frequent_condition_filter=True,
+                              device=cuda)
+    table, stats = sharded.discover_on(t, s, 1, device="cuda", use_fis=True)
+    _, cpu_stats = sharded.discover_on(t, s, 1, device="cpu", use_fis=True)
+    assert table.to_rows() == want.to_rows()
+    assert (stats["dist_backend"], stats["staged"]) == ("nccl", 0)
+    _ran_its_own_passes(stats)
+    for k in ("planned_caps", "n_giant_lines", "n_giant_pairs",
+              "n_pair_passes"):
+        assert stats[k] == cpu_stats[k], k
+
+
+def test_sharded_on_four_staged_gloo_ranks_of_one_card(cuda, monkeypatch):
+    """Four ranks on the one card over gloo staged through host memory: the
+    single-device table, and the plan of four gloo CPU ranks (exact)."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.parallel import mesh
+
+    t, s = _sharded_case()
+    want = allatonce.discover(t, s, use_frequent_condition_filter=True,
+                              device=cuda)
+    monkeypatch.setenv(mesh.BACKEND_ENV, "gloo")
+    table, stats = sharded.discover_on(t, s, 4, device="cuda", use_fis=True)
+    _, cpu_stats = sharded.discover_on(t, s, 4, device="cpu", use_fis=True)
+    assert table.to_rows() == want.to_rows()
+    assert (stats["dist_backend"], stats["staged"]) == ("gloo", 1)
+    _ran_its_own_passes(stats)
+    for k in ("planned_caps", "n_giant_lines", "n_giant_pairs",
+              "n_pair_passes", "exchange_sites"):
+        assert stats[k] == cpu_stats[k], k
+
+
+def test_nccl_with_more_ranks_than_cards_raises(cuda, monkeypatch):
+    """No silent fallback to another transport."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv(mesh.BACKEND_ENV, raising=False)
+    n = torch.cuda.device_count() + 1
+    t, s = _sharded_case()
+    with pytest.raises(RuntimeError, match=f"{n} local ranks asked for"):
+        sharded.discover_on(t, s, n, device="cuda")

@@ -92,6 +92,29 @@ def test_entry_point_without_a_device_raises_when_cuda_is_absent(monkeypatch):
         rdfind_tpu_torch.discover(triples, 1, strategy=0, device="cuda")
 
 
+def test_sharded_entry_points_raise_without_a_device_when_cuda_is_absent(
+        monkeypatch, tmp_path):
+    """discover_sharded, discover_on, the launcher and the CLI's --dop run on
+    CUDA ranks unless the caller asks for the CPU."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.parallel import launch
+    from rdfind_tpu_torch.programs import rdfind as tcli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    triples = np.array([[0, 1, 2], [3, 1, 2]], np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.discover_sharded(triples, 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded.discover_on(triples, 1, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.spawn(sharded.discover_sharded, 2)
+    f = tmp_path / "d.nt"
+    f.write_text("<a> <p> <b> .\n<c> <p> <b> .\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcli.main([str(f), "--support", "1", "--traversal-strategy", "0",
+                   "--dop", "2"])
+
+
 def test_cli_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
     from rdfind_tpu_torch.programs import rdfind as tcli
 
