@@ -100,13 +100,28 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    supervisor retry, resumed passes, byte-identical.  Each run's wall, host ms
    per pipeline stage, exchange bytes per site, idle share, peak memory per
    rank and transport;
-15. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+15. ``sharded_s123``: sharded strategies 1-3 with the frequent-condition
+   filter: strategy 2 on the headline on one NCCL rank, then on four ranks
+   over staged gloo strategies 2 and 3 and strategy 1 with the
+   half-approximate round off and on on the headline, and strategy 1 on the
+   real-size workload, each equal to its golden with the JAX package's plan
+   and sketch or round statistics and no fallback; K2, P1 and P2 launched on
+   every rank of strategies 2 and 3 (counts read on every rank), K2
+   bit-exact against its plain version on rank 0's real tile; the CLI with
+   ``--dop 4`` (the default strategy), with ``--sharded-ingest`` on the
+   headline split into four files, and as two hosts of two ranks on the one
+   card (``--coordinator``), each byte-identical to the single-device CLI.
+   Each run's wall, host ms per stage, exchange bytes per site, idle share
+   and peak memory per rank (``--only sharded_s123`` runs the build and this
+   phase alone, with no result line);
+16. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
    The kernel phase also times an empty launch (``launch_floor``), the
    practical floor under the probes P1 and P2.
 
 To stay within its time, the script runs the unfiltered strategy-1 walk, the
 forced chunked backend and the half-approximate round once each (the main
-paths on the two filtered workloads take the median of 3).
+paths on the two filtered workloads take the median of 3), and caps the
+real-size ``spo`` delta, which does not finish, at SPO_CAP_S.
 
 Any mismatch raises, so the script exits non-zero without the last line.
 """
@@ -142,7 +157,7 @@ from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
 from rdfind_tpu_torch.obs import console, integrity, metrics, report  # noqa: E402
 from rdfind_tpu_torch.ops import build, cooc, kernels, sketch  # noqa: E402
-from rdfind_tpu_torch.parallel import launch  # noqa: E402
+from rdfind_tpu_torch.parallel import exchange, launch  # noqa: E402
 from rdfind_tpu_torch.programs import rdfind as cli  # noqa: E402
 from rdfind_tpu_torch.runtime import delta, driver, faults, serving  # noqa: E402
 from rdfind_tpu_torch.utils import synth  # noqa: E402
@@ -1177,7 +1192,7 @@ HEADLINE_DELTA_FRAC = 0.01
 REAL_SIZE_DELTA_FRAC = 0.0001
 SMALL_DELTA_TRIPLES = 20_000
 # Wall cap of the --projection spo delta run on the real-size workload.
-SPO_CAP_S = 60
+SPO_CAP_S = 30
 # Queries of the serve phase.
 N_HOLD_QUERIES = 1000
 N_REFERENCED_QUERIES = 200
@@ -2021,6 +2036,295 @@ def run_sharded_phase(data, paths, s0_lines) -> list:
     return rows
 
 
+# The sharded strategies 1-3 (the sharded_s123 phase).  Strategy 2's sketch
+# stage (its capture table, padded to 128 x ranks, and its candidates) and
+# strategy 3's round counts, recorded from the JAX package on the CPU with
+#   python scripts/record_sharded_goldens.py headline:1:2 headline:4:2 \
+#       headline:1:3
+# (its --check holds each reading against complete runs).  Every strategy's
+# pipeline is strategy 0's, so its plan (planned_caps, n_pair_passes) is
+# GOLDEN_SHARDED's.  The half-approximate round's ha_cut_pairs needs a
+# complete sharded pair phase, which a CPU run of the JAX package does not
+# finish at this size: the CPU tests hold it equal at small size, and here
+# its table width, build rounds and all-reduce bytes are checked.
+GOLDEN_SHARDED_S123 = {
+    ("headline", 2, 1): dict(sketch_plan=dict(c_real=5215, c_pad=5248),
+                             n_sketch_candidates=2750411, n_captures=5215),
+    ("headline", 2, 4): dict(sketch_plan=dict(c_real=5215, c_pad=5632),
+                             n_sketch_candidates=2750411, n_captures=5215),
+    ("headline", 3): dict(n_round1_cinds=293686, n_round2_cinds=90586),
+}
+S123_STAGES = SHARDED_STAGES + ("sketch", "verify", "lattice")
+K2_PATH_KERNELS = ("packed_contains_matrix", "repeat_probe", "pipeline_probe")
+HA_LEVELS = 4  # one count-min build per lattice level
+
+
+def k2_tile_row(tile, device) -> dict:
+    """K2 on a rank's real tile of the sharded sketch stage (its own dep
+    block's first tile against every ref) and its plain version on the same
+    inputs: bit-exact, each timed on the card."""
+    args = (tile["sketch"], tile["ref_packed"], tile["ref_popc"])
+    err = compare_k2(args)
+    (d, w), r = args[0].shape, args[1].shape[0]
+    k_ms = time_ms(lambda: kernels.packed_contains_matrix(*args), device,
+                   reps=50, device_only=True)
+    p_ms = time_ms(lambda: kernels.packed_contains_matrix_plain(*args),
+                   device, reps=3)
+    a = sketch.unpack_planes(args[0]).to(torch.int8)
+    b = sketch.unpack_planes(args[1]).to(torch.int8)
+    lib_ms = time_ms(lambda: torch._int_mm(a, b.T), device, reps=50,
+                     device_only=True)
+    ops = 2 * d * r * 32 * w
+    nbytes = 4 * (d + r) * w + 4 * r + d * r
+    return dict(d=d, r=r, w=w, max_abs_err=err, match=True, kernel_ms=k_ms,
+                plain_ms=p_ms, library_ms=lib_ms,
+                library="torch._int_mm of the unpacked 0/1 planes",
+                **rate_fields(ops, nbytes, k_ms))
+
+
+def s123_rank(mesh, runs):
+    """The ranks of a batch of sharded strategy 1-3 runs on the card (spawned
+    by the launcher, which imports it by name).  Per run: every kernel count
+    set to 0 just before and read just after on every rank, the wall, rank
+    0's card utilization, the table's count and digest, and rank 0's first
+    real K2 tile through K2 and through the plain version (after the counts
+    were read, so those launches do not count)."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.parallel.mesh import host_gather
+
+    dev = mesh.device
+    out = []
+    for label, name, triples, support, strategy, kw, env in runs:
+        with environ(**env):
+            kernels.reset_contains_check()
+            kernels.reset_launches()
+            sharded.KEEP_K2_TILE = strategy in (2, 3)
+            sharded.K2_TILE.clear()
+            stats = {}
+            util = (DeviceUtilization() if mesh.rank == 0
+                    else contextlib.nullcontext())
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            with util:
+                t0 = time.perf_counter()
+                table = sharded.STRATEGIES[strategy](
+                    triples, support, mesh=mesh, stats=stats, **kw)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+            counts = torch.tensor([kernels.LAUNCHES[k]
+                                   for k in K2_PATH_KERNELS],
+                                  dtype=torch.int64, device=dev)
+            launches = host_gather(mesh, counts.reshape(1, -1))
+            tile = dict(sharded.K2_TILE)
+            sharded.KEEP_K2_TILE = False
+            sharded.K2_TILE.clear()
+        if mesh.rank == 0:
+            out.append(dict(
+                label=label, wall_s=wall, n_cinds=len(table),
+                digest=integrity.digest_hex(*integrity.digest_table(table)),
+                stats=stats, busy_share=util.busy_share,
+                n_util_samples=len(util.samples),
+                launches={k: launches[:, i].tolist()
+                          for i, k in enumerate(K2_PATH_KERNELS)},
+                k2_tile=k2_tile_row(tile, dev) if tile else None))
+        del table, tile
+    return out if mesh.rank == 0 else None
+
+
+def s123_golden(name, strategy, world, kw, env) -> dict:
+    """What a sharded strategy 1-3 run must give: the single-device golden's
+    count and digest (and strategy 1's exact lattice counts), the JAX
+    package's sketch or round statistics, the plan of GOLDEN_SHARDED."""
+    if strategy == 1:
+        want = {k: v for k, v in GOLDEN_S2L[name].items()
+                if k not in ("n_inferred_21", "total_pairs")}
+    else:
+        want = {k: GOLDEN_APPROX[(name, strategy)][k]
+                for k in ("n_cinds", "digest")}
+    if strategy == 2:
+        want.update(GOLDEN_SHARDED_S123[(name, 2, world)])
+    if strategy == 3:
+        want.update(GOLDEN_SHARDED_S123[(name, 3)])
+    plan = GOLDEN_SHARDED[(name, world)]
+    want.update(n_pair_passes=plan["n_pair_passes"],
+                planned_caps=plan["planned_caps"])
+    if env.get("RDFIND_SHARDED_HALF_APPROX") == "1":
+        want.update(ha_build_rounds=HA_LEVELS, ha_sketch_bits=1 << 16)
+    return want
+
+
+def run_s123_batch(label, world, batch, transport) -> list:
+    """One launch of `world` ranks on the card under `transport` running the
+    runs of `batch` in turn; each run's golden, JAX statistics, launches on
+    every rank and no fallback are checked, and its row printed."""
+    torch.cuda.empty_cache()
+    with environ(**transport):
+        t0 = time.perf_counter()
+        out = launch.spawn(s123_rank, world, device="cuda", args=(batch,))
+        launch_s = time.perf_counter() - t0
+    rows = []
+    for (run, name, _, _, strategy, kw, env), got in zip(batch, out):
+        stats = got["stats"]
+        want = s123_golden(name, strategy, world, kw, env)
+        have = dict(n_cinds=got["n_cinds"], digest=got["digest"],
+                    **{k: stats.get(k) for k in want
+                       if k not in ("n_cinds", "digest")})
+        what = f"sharded_s123 {label}/{run}"
+        if have != want:
+            raise AssertionError(f"{what}: {have}, the JAX package gives "
+                                 f"{want}")
+        check_no_fallback(what, stats.get("degradations") or [],
+                          stats.get("n_pair_passes"))
+        if strategy in (2, 3):
+            idle = {k: v for k, v in got["launches"].items()
+                    if min(v) <= 0}
+            if idle:
+                raise AssertionError(f"{what}: a rank launched no "
+                                     f"{sorted(idle)}: {got['launches']}")
+        sites = stats.get("exchange_sites", {})
+        if env.get("RDFIND_SHARDED_HALF_APPROX") == "1":
+            one = exchange.log_sketch_allreduce(None, num_dev=world,
+                                                bits=1 << 16)["bytes"]
+            if (sites.get("sketch_allreduce", {}).get("bytes")
+                    != HA_LEVELS * one or "ha_cut_pairs" not in stats):
+                raise AssertionError(f"{what}: half-approximate round "
+                                     f"{sites.get('sketch_allreduce')}, "
+                                     f"cut {stats.get('ha_cut_pairs')}")
+        row = dict(phase="sharded_s123", run=f"{label}/{run}", workload=name,
+                   strategy=strategy, world=world, options=kw, env=env,
+                   wall_s=got["wall_s"], launch_wall_s=launch_s,
+                   golden_match=True, plan_match_jax=True, checked=want,
+                   dist_backend=stats.get("dist_backend"),
+                   staged=stats.get("staged"),
+                   stages_host_ms={k: stats.get("stage_host_ms", {}).get(k)
+                                   for k in S123_STAGES},
+                   exchange_bytes={k: v["bytes"] for k, v in sites.items()},
+                   exchange_wire_bytes=stats.get("exchange_wire_bytes"),
+                   idle_share=(None if got["busy_share"] is None
+                               else 1.0 - got["busy_share"]),
+                   n_util_samples=got["n_util_samples"],
+                   peak_mem_bytes_per_rank=stats.get(
+                       "peak_mem_bytes_per_rank"),
+                   launches_per_rank=got["launches"],
+                   k2_tile=got["k2_tile"], total_pairs=stats.get(
+                       "total_pairs"),
+                   ha={k: v for k, v in stats.items()
+                       if k.startswith("ha_")},
+                   degradations=stats.get("degradations") or [])
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def two_host_cli(label, argv, want_lines, env, timeout=600) -> dict:
+    """The CLI as two hosts of two ranks each on the one card (two
+    processes joined through --coordinator): rc 0 on both, host 0's output
+    equal to `want_lines`.  Returns host 0's row fields."""
+    port = free_port()
+    outs = [os.path.join(SCRATCH, f"{label}_host{h}.txt") for h in (0, 1)]
+    with DeviceUtilization() as util:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "rdfind_tpu_torch.programs.rdfind", *argv,
+             "--coordinator", f"127.0.0.1:{port}", "--num-hosts", "2",
+             "--host-index", str(h), "--output", outs[h], "--counters", "1"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, **env},
+            cwd=os.path.dirname(os.path.abspath(__file__))) for h in (0, 1)]
+        try:
+            res = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    got = (open(outs[0]).read().splitlines() if os.path.exists(outs[0])
+           else [])
+    if [p.returncode for p in procs] != [0, 0] or got != want_lines:
+        raise AssertionError(f"sharded_s123 CLI {label}: rc "
+                             f"{[p.returncode for p in procs]}, {len(got)} "
+                             f"lines, want {len(want_lines)}: "
+                             f"{res[0][1][-2000:]} {res[1][1][-2000:]}")
+    counters, phases = parse_report(res[0][1])
+    return dict(wall_s=wall, phases_s=phases, n_lines=len(got),
+                golden_match=True, counters=counters,
+                idle_share=(None if util.busy_share is None
+                            else 1.0 - util.busy_share))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_sharded_s123_phase(data, paths, s0_lines, s1_lines) -> list:
+    """Sharded strategies 1-3 on the card with the frequent-condition filter:
+    (a) strategy 2 on the headline on one NCCL rank; (b) on four ranks over
+    staged gloo: strategies 2 and 3 and strategy 1 with the half-approximate
+    round off and on, on the headline, and strategy 1 on the real-size
+    workload; (c) the CLI with --dop 4 and the default strategy, with
+    --sharded-ingest on the headline split into four files, and as two
+    hosts of two ranks (replicated interning), both with strategy 2 (the
+    shortest: its output is strategy 0's), each byte-identical to the
+    single-device CLI."""
+    fis = dict(use_fis=True)
+    headline, support = data["headline"]
+    real, real_support = data[REAL_SIZE]
+    rows = run_s123_batch("nccl1", 1, [
+        ("headline_s2", "headline", headline, support, 2, fis, {})], {})
+    staged = dict(RDFIND_TORCH_DIST_BACKEND="gloo",
+                  RDFIND_PAIR_ROW_BUDGET=str(SHARDED_BUDGET))
+    ha = dict(RDFIND_SHARDED_HALF_APPROX="1")
+    rows += run_s123_batch("gloo4", 4, [
+        ("headline_s2", "headline", headline, support, 2, fis, {}),
+        ("headline_s3", "headline", headline, support, 3, fis, {}),
+        ("headline_s1", "headline", headline, support, 1, fis, {}),
+        ("headline_s1_ha", "headline", headline, support, 1, fis, ha),
+        (f"{REAL_SIZE}_s1", REAL_SIZE, real, real_support, 1, fis, {}),
+    ], staged)
+
+    shards = []
+    terms = terms_of(headline)
+    for i in range(4):
+        shards.append(os.path.join(SCRATCH, f"headline.part{i}.nt"))
+        write_nt(shards[-1], headline[i::4], terms)
+    base = ["--support", "10", "--use-fis"]
+    runs = [("cli_dop4", [paths["nt"], *base, "--dop", "4"], s1_lines),
+            ("cli_sharded_ingest4", [*shards, *base, "--dop", "4",
+                                     "--traversal-strategy", "2",
+                                     "--sharded-ingest", "--interning",
+                                     "partitioned"], s0_lines)]
+    for label, argv, want in runs:
+        r = sharded_cli(label, argv, want, staged, timeout=600)
+        row = dict(phase="sharded_s123", run=label,
+                   world_size=r["counters"].get("stat-world_size"),
+                   **{k: v for k, v in r.items()
+                      if k not in ("counters", "stderr")})
+        emit(row)
+        rows.append(row)
+    r = two_host_cli("cli_two_hosts", [*shards, *base, "--dop", "4",
+                                       "--traversal-strategy", "2",
+                                       "--sharded-ingest", "--interning",
+                                       "replicated"], s0_lines, staged)
+    c = r.pop("counters")
+    if (c.get("stat-world_size"), c.get("stat-dist_backend")) != ("4",
+                                                                 "gloo"):
+        raise AssertionError(f"two-host CLI: {c.get('stat-world_size')} "
+                             f"ranks over {c.get('stat-dist_backend')}")
+    row = dict(phase="sharded_s123", run="cli_two_hosts",
+               dist_backend=c.get("stat-dist_backend"),
+               staged=c.get("stat-staged"),
+               world_size=c.get("stat-world_size"),
+               stages_host_ms=ast.literal_eval(c["stat-stage_host_ms"])
+               if c.get("stat-stage_host_ms") else None, **r)
+    emit(row)
+    rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -2048,6 +2352,20 @@ def main() -> int:
               .fused_cind_smem_bytes()))
 
     data = {name: (gen(), support) for name, gen, support in WORKLOADS}
+    if sys.argv[1:] == ["--only", "sharded_s123"]:
+        # A shorter run for working on the phase alone (no result line).
+        headline, support = data["headline"]
+        paths = write_inputs(headline)
+        lines = []
+        for strategy in (0, 1):
+            want = rdfind_tpu_torch.discover(headline, support,
+                                             strategy=strategy, device=device)
+            lines.append(sorted(c.pretty() for c in
+                                want.decoded(Dictionary(terms_of(headline)))))
+            del want
+        run_sharded_s123_phase(data, paths, *lines)
+        emit({"partial": "sharded_s123", "ok": True})
+        return 0
     preps = {name: prepare(t, s, device) for name, (t, s) in data.items()}
     k1_rows = run_k1_cases(k1_cases(preps, device), device)
     del preps
@@ -2127,6 +2445,8 @@ def main() -> int:
 
     # The sharded pipeline: one NCCL rank, four staged gloo ranks, the CLI.
     run_sharded_phase(data, paths, s0_lines)
+    # Sharded strategies 1-3, the sharded ingest and two hosts on one card.
+    s123_rows = run_sharded_s123_phase(data, paths, s0_lines, s1_lines)
 
     # Each kernel's row: its time at the real-size main path's shape, its
     # launches in that path's checked run, its largest error over all cases.
@@ -2154,8 +2474,8 @@ def main() -> int:
              library_ms=real2["library_ms"], tops=real2["tops"],
              share_of_bound=real2["share_of_bound"]),
     ]
-    for name, replaces in (("repeat_probe", "pallas_kernels.py:113"),
-                           ("pipeline_probe", "pallas_kernels.py:249")):
+    for name, replaces in (("repeat_probe", "pallas_kernels.py:114"),
+                           ("pipeline_probe", "pallas_kernels.py:250")):
         r = probe_rows[name]
         line.append(dict(name=name, route="cuda",
                          source="rdfind_tpu_torch/csrc/contains.cu",
@@ -2165,6 +2485,32 @@ def main() -> int:
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                          bound_by=r["bound_by"], library_ms=r["library_ms"],
                          launch_floor_ms=floor["kernel_ms"]))
+    # The sharded strategy-2 path on four staged ranks: K2 on every rank's
+    # dep block (launches summed over the ranks, rank 0's real tile timed),
+    # the probes once per rank process.
+    s2 = next(r for r in s123_rows if r["run"] == "gloo4/headline_s2")
+    t2 = s2["k2_tile"]
+    per_rank = s2["launches_per_rank"]
+    line.append(dict(name="packed_contains_matrix[sharded_s123]",
+                     route="cuda", source="rdfind_tpu_torch/csrc/contains.cu",
+                     replaces="rdfind_tpu/ops/pallas_kernels.py:336",
+                     launches=sum(per_rank["packed_contains_matrix"]),
+                     launches_per_rank=per_rank["packed_contains_matrix"],
+                     max_abs_err=t2["max_abs_err"], ms=t2["kernel_ms"],
+                     plain_ms=t2["plain_ms"], bound_ms=t2["bound_ms"],
+                     bound_by=t2["bound_by"], library_ms=t2["library_ms"],
+                     tops=t2["tops"], share_of_bound=t2["share_of_bound"]))
+    for name, replaces in (("repeat_probe", "pallas_kernels.py:114"),
+                           ("pipeline_probe", "pallas_kernels.py:250")):
+        r = probe_rows[name]
+        line.append(dict(name=f"{name}[sharded_s123]", route="cuda",
+                         source="rdfind_tpu_torch/csrc/contains.cu",
+                         replaces=f"rdfind_tpu/ops/{replaces}",
+                         launches=sum(per_rank[name]),
+                         launches_per_rank=per_rank[name],
+                         max_abs_err=r["max_abs_err"], ms=r["kernel_ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Multi-device AllAtOnce discovery, sharded over the rank mesh.
+"""Multi-device discovery, sharded over the rank mesh: all four strategies.
 
 The JAX package's sharded dataflow (``models/sharded.py``), run SPMD: every rank
 runs this host code on its own row block, and each step's collectives go over
@@ -28,6 +28,23 @@ Every host decision reads only mesh-reduced values (overflow lanes, plan
 maxima, resume agreement), so all ranks take the same branch and issue the same
 collectives.  Every rank ends with the whole CIND table: a pulled block is an
 all_gather of the ranks' fixed-shape blocks in rank order.
+
+Strategies 1-3 keep the join lines resident on the ranks and drive the
+single-device strategies' host logic over the mesh-wide capture table:
+
+  * SmallToLarge (1): each lattice level's (dep?, ref?) capture flags are
+    joined onto the resident rows and only flagged rows enter the pair phase
+    (``run_cooc``); with RDFIND_SHARDED_HALF_APPROX on, a round of per-rank
+    count-min partials, saturating-folded and all-reduced, first cuts the
+    sub-support pairs before exchange C (bit-identical output);
+  * Approximate (2) and LateBB (3): every rank builds the Bloom refset sketches
+    of its lines, the ranks AND them per dependent block, and each rank runs
+    the containment kernel K2 on its own block of dependents against every ref
+    (``_sharded_sketch_candidates``); the candidates verify as masked pair
+    phases.
+
+``preshard`` feeds rows that no host ever held whole (the sharded multi-host
+ingest, ``runtime/multihost_ingest.py``): each rank passes its own row block.
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import hashlib
 import os
 import sys
 import time
@@ -49,7 +67,8 @@ from ..data import CindTable
 from ..obs import datastats, forecast, integrity
 from ..obs import memory as obs_memory
 from ..obs import metrics, tracer
-from ..ops import frequency, hashing, minimality, pairs, segments
+from ..ops import (cooc as cooc_ops, frequency, hashing, kernels, minimality,
+                   pairs, segments, sketch)
 from ..ops.emission import emit_join_candidates
 from ..parallel import exchange
 from ..parallel.mesh import (allgather_host_values, dcn_chunks as
@@ -121,6 +140,7 @@ _SEED_GIANT = 5     # giant-line dependent ownership
 _SEED_PASS = 7      # dep-slice selection for bounded-memory pair passes
 _SEED_UNARY = 11    # +f, f in 0..2: frequency count exchanges
 _SEED_BINARY = 17   # +k, k in 0..2
+_SEED_HA = 23       # count-min pair keys of the sharded half-approximate round
 
 
 def _exact_sum_f32(values, mesh):
@@ -495,10 +515,17 @@ def _emit_local_pairs(mesh, jv, code, v1, v2, n_rows, dep_f, ref_f, *,
             n_giant_lines, n_giant_pairs, n_pairs_total)
 
 
+def _ha_pair_keys(pcols):
+    """32-bit count-min key of each (dep capture, ref capture) pair row (held
+    in int64): a pure function of the six key columns, so a pair has one key
+    on every rank and in every pass."""
+    return hashing.hash_cols(pcols, seed=_SEED_HA)
+
+
 def _pair_phase(mesh, jv, code, v1, v2, n_rows, dep_f, ref_f, *, cap_pairs,
                 cap_exchange_c, cap_giant, cap_giant_pairs,
                 skew=DEFAULT_SKEW, pass_idx=None, n_pass=None,
-                cap_exchange_c_dcn=0, hier=None, dcn_chunks=1):
+                cap_exchange_c_dcn=0, hier=None, dcn_chunks=1, ha_cut=None):
     """Skew-aware masked pair counting over value-sorted line rows, then
     exchange C to the dependent capture's owner and the merge there.
 
@@ -506,9 +533,15 @@ def _pair_phase(mesh, jv, code, v1, v2, n_rows, dep_f, ref_f, *, cap_pairs,
     hashes to pass_idx (mod n_pass) emit, so every buffer shrinks by ~n_pass
     and the per-pass outputs concatenate with no cross-pass merge.
 
+    ha_cut = (table, bits, num_hashes, thresh) arms the half-approximate
+    round's cut: pair rows whose count-min estimate is below thresh leave
+    before exchange C.  The all-reduced table upper-bounds min(global cooc,
+    cap) and thresh <= min(min_support, cap), so a cut pair has a cooc below
+    the support and every partial row of a pair shares its key: the output
+    is the same with the cut on or off.
+
     Returns (ucols(6), uvalid, cooc, (ovf_p, ovf_c, ovf_g, ovf_gp, ovf_cd),
-    n_giant_lines, n_giant_pairs, n_pairs_total, n_ha_cut); n_ha_cut is 0
-    (the half-approximate cut belongs to the sharded small-to-large round)."""
+    n_giant_lines, n_giant_pairs, n_pairs_total, n_ha_cut)."""
     d = mesh.size
     (pcols, pvalid2, pcnt, (ovf_p, ovf_g, ovf_gp),
      n_giant_lines, n_giant_pairs, n_pairs_total) = _emit_local_pairs(
@@ -516,6 +549,13 @@ def _pair_phase(mesh, jv, code, v1, v2, n_rows, dep_f, ref_f, *, cap_pairs,
         cap_giant=cap_giant, cap_giant_pairs=cap_giant_pairs, skew=skew,
         pass_idx=pass_idx, n_pass=n_pass)
     n_ha_cut = torch.zeros((), dtype=torch.int64, device=jv.device)
+    if ha_cut is not None:
+        table, ha_bits, ha_hashes, ha_thresh = ha_cut
+        est = sketch.count_min_query(table, _ha_pair_keys(pcols), bits=ha_bits,
+                                     num_hashes=ha_hashes)
+        keep = est >= ha_thresh
+        n_ha_cut = mesh.psum((pvalid2 & ~keep).sum())
+        pvalid2 = pvalid2 & keep
 
     pair_bucket = hashing.bucket_of(pcols[0:3], d, seed=_SEED_CAPTURE)
     if hier is None:
@@ -594,6 +634,91 @@ def _cind_step(mesh, lines, n_rows, tbl, n_caps, min_support, pass_idx,
     return out_cols, n_out, tele
 
 
+def _s2l_flag_rows(lines, n_rows, flags):
+    """Join a level's (dep?, ref?) flag table onto the resident rows and move
+    the flagged rows to the front, order kept: dropping never-relevant rows
+    before the quadratic layout is the strategy's saving.  The verification
+    step and the round-1 sketch build share it, so both see one pair
+    stream.  Returns ((jv, code, v1, v2, dep_f, ref_f), n_keep)."""
+    jv, code, v1, v2 = lines
+    fcode, fv1, fv2, fflag, n_flags = flags
+    dev = jv.device
+    valid = torch.arange(jv.shape[0], device=dev) < n_rows
+    fvalid = torch.arange(fcode.shape[0], device=dev) < n_flags
+    flag = exchange.sorted_join_counts([fcode, fv1, fv2], fflag, fvalid,
+                                       [code, v1, v2], valid)
+    dep_f = valid & (flag >= 2)
+    ref_f = valid & (flag % 2 == 1)
+    return segments.padded_compact([jv, code, v1, v2, dep_f, ref_f],
+                                   dep_f | ref_f)
+
+
+def _s2l_cooc_step(mesh, lines, n_rows, flags, pass_idx, n_pass, *,
+                   cap_pairs, cap_exchange_c, cap_giant, cap_giant_pairs,
+                   skew=DEFAULT_SKEW, cap_exchange_c_dcn=0, hier=None,
+                   dcn_chunks=1, ha_cut=None):
+    """One pass of a level's verification: flag join, masked pair phase
+    (with the half-approximate cut when `ha_cut` is set).  Returns
+    (out_cols (6 keys + cooc), n_out, telemetry lanes)."""
+    (jv2, code2, v12, v22, df2, rf2), n_keep = _s2l_flag_rows(lines, n_rows,
+                                                              flags)
+    (ucols, uvalid, cooc, ovfs, n_giant_lines, n_giant_pairs, n_pairs_total,
+     n_ha_cut) = _pair_phase(
+        mesh, jv2, code2, v12, v22, n_keep, df2, rf2, cap_pairs=cap_pairs,
+        cap_exchange_c=cap_exchange_c, cap_giant=cap_giant,
+        cap_giant_pairs=cap_giant_pairs, skew=skew, pass_idx=pass_idx,
+        n_pass=n_pass, cap_exchange_c_dcn=cap_exchange_c_dcn, hier=hier,
+        dcn_chunks=dcn_chunks, ha_cut=ha_cut)
+    out_cols, n_out = segments.padded_compact(list(ucols) + [cooc], uvalid)
+    dig_a, dig_b = _digest_lanes(
+        mesh, out_cols,
+        torch.arange(out_cols[0].shape[0], device=jv2.device) < n_out)
+    tele = exchange.pack_counters([*ovfs, n_giant_lines, n_giant_pairs,
+                                   n_pairs_total, n_ha_cut, dig_a, dig_b])
+    return out_cols, n_out, tele
+
+
+def _s2l_sketch_build_step(mesh, lines, n_rows, flags, pass_idx, n_pass, *,
+                           cap_pairs, cap_giant, cap_giant_pairs,
+                           skew=DEFAULT_SKEW, ha_bits, ha_hashes):
+    """One pass of round 1 of the half-approximate round: the level's pair
+    stream (the verification's flag join, emission, caps and dep slices)
+    folded into this rank's count-min partial table.  The pairs never leave
+    the rank; summed over ranks and passes the partial counts are each
+    pair's global cooc.  Returns ([table], ha_bits, telemetry lanes)."""
+    (jv2, code2, v12, v22, df2, rf2), n_keep = _s2l_flag_rows(lines, n_rows,
+                                                              flags)
+    (pcols, pvalid2, pcnt, (ovf_p, ovf_g, ovf_gp), n_giant_lines,
+     n_giant_pairs, n_pairs_total) = _emit_local_pairs(
+        mesh, jv2, code2, v12, v22, n_keep, df2, rf2, cap_pairs=cap_pairs,
+        cap_giant=cap_giant, cap_giant_pairs=cap_giant_pairs, skew=skew,
+        pass_idx=pass_idx, n_pass=n_pass)
+    table = sketch.count_min_partial(_ha_pair_keys(pcols), pcnt, pvalid2,
+                                     bits=ha_bits, num_hashes=ha_hashes)
+    dev = jv2.device
+    # (local position, value) rows: the mesh-summed lanes equal
+    # integrity.digest_sketch_rows over the stacked partials at any mesh size.
+    dig_a, dig_b = _digest_lanes(
+        mesh, [torch.arange(ha_bits, dtype=torch.int32, device=dev), table],
+        torch.ones(ha_bits, dtype=torch.bool, device=dev))
+    z = torch.zeros((), dtype=torch.int64, device=dev)
+    tele = exchange.pack_counters([ovf_p, z, ovf_g, ovf_gp, z, n_giant_lines,
+                                   n_giant_pairs, n_pairs_total, z, dig_a,
+                                   dig_b])
+    return [table], torch.tensor(ha_bits, device=dev), tele
+
+
+def _ha_reduce_step(mesh, parts, *, cap: int, hier=None):
+    """Fold this rank's (k, bits) partial tables with min(acc + row, cap) in
+    int32 (each partial is already capped, so no sum wraps), then the
+    saturating all-reduce: every rank gets min(cap, global sum) per counter
+    (the saturation lemma, ``ops/sketch.py``)."""
+    acc = torch.zeros(parts.shape[-1], dtype=torch.int32, device=parts.device)
+    for row in parts:
+        acc = torch.clamp(acc + row.to(torch.int32), max=cap)
+    return exchange.sketch_allreduce(acc, mesh, cap=cap, hier=hier)
+
+
 def _stage_datastats(mesh, jv, n_rows, tcnt, n_caps, giant_load: int):
     """The data plane's one-shot distribution snapshot over the resident
     state: the 32-bin log2 join-line size histogram, the 32-bin capture
@@ -648,6 +773,25 @@ def _stage_digest(mesh, lines, n_rows, tbl, n_caps):
 T_LOC_FLOOR = 256
 CAP_FLOOR = 512
 PAIR_ROW_BUDGET = 1 << 25
+
+# The sharded half-approximate round: count-min depth and default width.
+_HA_HASHES = 2
+_HA_DEF_BITS = 1 << 16
+
+
+def sharded_half_approx_enabled() -> bool:
+    """RDFIND_SHARDED_HALF_APPROX: run SmallToLarge's level verification as
+    the two-round count-min cut (auto/0/1; auto, the default, is off).  The
+    output is the same either way."""
+    v = os.environ.get("RDFIND_SHARDED_HALF_APPROX", "auto").strip().lower()
+    return v in ("1", "on", "true", "yes")
+
+
+def sharded_ha_bits() -> int:
+    """RDFIND_SHARDED_HA_BITS: count-min table width of the round (a power
+    of two, at least 32; default 2^16 int32 counters, one table per rank)."""
+    v = int(os.environ.get("RDFIND_SHARDED_HA_BITS", _HA_DEF_BITS))
+    return max(32, segments.pow2_capacity(max(v, 1)))
 
 
 def _shard_triples(triples, num_dev, t_loc: int | None = None):
@@ -799,7 +943,7 @@ class _Pipeline:
 
     def __init__(self, mesh, triples, min_support, projections, use_fis,
                  use_ars, max_retries, stats, skew=None, combine=True,
-                 progress=None):
+                 preshard=None, progress=None):
         self.mesh = mesh
         self.num_dev = mesh.size
         self.min_support = min_support
@@ -817,11 +961,22 @@ class _Pipeline:
         self.progress = progress
         self._phase_seq = 0
         self._pull_base = faults.pull_stats()
-        padded, n_valid, _ = _shard_triples(triples, self.num_dev)
-        self._triples = make_global(padded, mesh)
-        self._n_valid = int(n_valid[mesh.rank])
+        if preshard is not None:
+            # This rank's block of rows no host held whole (sharded ingest).
+            self._triples = preshard[0].to(mesh.device)
+            self._n_valid = int(preshard[1])
+        else:
+            padded, n_valid, _ = _shard_triples(triples, self.num_dev)
+            self._triples = make_global(padded, mesh)
+            self._n_valid = int(n_valid[mesh.rank])
         self._meter_on, self._datastats_on, self._integrity_on = \
             _obs_flags(mesh)
+        # The half-approximate round, resolved once for every lattice level;
+        # the cut threshold is clamped to the counters' cap.
+        self.ha_on = sharded_half_approx_enabled()
+        self.ha_bits = sharded_ha_bits()
+        self.ha_hashes = _HA_HASHES
+        self.ha_thresh = min(int(min_support), sketch.MAX_COUNT_MIN_CAP)
         if stats is not None:
             metrics.gauge_set(stats, "dist_backend", mesh.backend)
             metrics.gauge_set(stats, "staged", int(mesh.staged))
@@ -1063,7 +1218,10 @@ class _Pipeline:
         integrity.publish_stage(self.stats, "lines", la, lb)
         integrity.publish_stage(self.stats, "captures", ca, cb)
 
-    def _host_digest(self, blocks):
+    def _host_digest(self, blocks, block_layout="rows"):
+        """Host replica of one pass's digest lanes over its blocks."""
+        if block_layout == "sketch":
+            return integrity.digest_sketch_rows(blocks[0], self.ha_bits)
         return integrity.digest_rows(blocks)
 
     def _on_any_rank(self, flags):
@@ -1073,7 +1231,7 @@ class _Pipeline:
         t = torch.as_tensor(np.asarray(flags, np.int64), device=self.mesh.device)
         return self.mesh.pmax(t).cpu().numpy() != 0
 
-    def _verify_snapshot(self, resumed, what):
+    def _verify_snapshot(self, resumed, what, block_layout="rows"):
         """Digest-attested resume: each loaded pass's content digest (after
         any re-shard; the digest is order-invariant) against the lanes
         persisted with it.  A mismatch on any rank is a clean miss for that
@@ -1089,7 +1247,7 @@ class _Pipeline:
             ok = len(tele_p) >= _N_TAIL
             if ok:
                 want = integrity.lanes_to_digest(tele_p[-2], tele_p[-1])
-                ok = self._host_digest(blocks_p) == want
+                ok = self._host_digest(blocks_p, block_layout) == want
             bad.append(not ok)
         out = {}
         for p, miss in zip(passes, self._on_any_rank(bad) if passes else []):
@@ -1106,7 +1264,8 @@ class _Pipeline:
                                     pass_idx=p)
         return out
 
-    def _verify_pull(self, blocks, tele, p, what, cols, n_out):
+    def _verify_pull(self, blocks, tele, p, what, cols, n_out,
+                     block_layout="rows"):
         """Verify one freshly pulled pass against its digest lanes.  Pulls
         are pure reads, so a mismatch re-pulls (RDFIND_PULL_RETRIES) before
         it is accepted as real: a transient flip is repaired.  A flip is
@@ -1115,7 +1274,8 @@ class _Pipeline:
         mismatches."""
         want = integrity.lanes_to_digest(tele[-2], tele[-1])
         blocks = faults.maybe_flip("flip@host_pull", blocks, pass_idx=p)
-        if not self._on_any_rank([self._host_digest(blocks) != want])[0]:
+        if not self._on_any_rank(
+                [self._host_digest(blocks, block_layout) != want])[0]:
             return blocks
         if integrity.strict():
             raise integrity.IntegrityError(
@@ -1124,7 +1284,8 @@ class _Pipeline:
         tries = max(1, int(os.environ.get("RDFIND_PULL_RETRIES", "3")))
         for _ in range(tries):
             blocks = self.collect_blocks(cols, n_out)
-            if not self._on_any_rank([self._host_digest(blocks) != want])[0]:
+            if not self._on_any_rank(
+                    [self._host_digest(blocks, block_layout) != want])[0]:
                 integrity.note_mismatch(self.stats, site="host_pull",
                                         stage=what, pass_idx=p,
                                         repaired=True)
@@ -1135,8 +1296,8 @@ class _Pipeline:
                                 pass_idx=p)
         return blocks
 
-    def _agreement_payload(self, blocks, p) -> list:
-        a, b = self._host_digest(blocks)
+    def _agreement_payload(self, blocks, p, block_layout="rows") -> list:
+        a, b = self._host_digest(blocks, block_layout)
         return [float(p), float(a), float(b)]
 
     def _agreement_check(self, rows, p, what) -> None:
@@ -1416,19 +1577,46 @@ class _Pipeline:
         counts = faults.guarded_pull(lambda: counts_d.cpu().numpy(),
                                      gate=False)
         top = max(int(counts.max()), 1)
-        lanes = torch.stack([c[:top].to(torch.int32) for c in cols])
+        lanes = torch.stack([_pad_rows(c[:top].to(torch.int32), top)
+                             for c in cols])
         rows_d = mesh.all_gather(lanes)                    # (D, K, top)
         rows = faults.guarded_pull(lambda: rows_d.cpu().numpy())
         return [np.concatenate([rows[r, k, :int(counts[r])]
                                 for r in range(rows.shape[0])])
                 for k in range(len(cols))]
 
+    def capture_table(self):
+        """The host capture table (code, v1, v2, support) in (code, v1, v2)
+        order, identical on every rank; each capture lives on exactly one
+        rank.  The lattice and candidate logic of strategies 1-3 run on it
+        host-side, so it must fit one host: RDFIND_HOST_CAPTURES_BUDGET
+        (default 2^27 captures) guards it."""
+        total = int(self.mesh.psum(torch.as_tensor(self.n_caps)))
+        budget = int(os.environ.get("RDFIND_HOST_CAPTURES_BUDGET", 1 << 27))
+        if total > budget:
+            raise ValueError(
+                f"capture table ({total} captures) exceeds the host-side "
+                f"lattice budget ({budget}); raise "
+                f"RDFIND_HOST_CAPTURES_BUDGET or use strategy 0 "
+                f"(fully device-resident)")
+        tc, tv1, tv2, tcnt = self.collect_blocks(self.tbl, self.n_caps)
+        cap_code, cap_v1, cap_v2, dep_count = (
+            a.astype(np.int64) for a in (tc, tv1, tv2, tcnt))
+        order = np.lexsort((cap_v2, cap_v1, cap_code))
+        return (cap_code[order], cap_v1[order], cap_v2[order],
+                dep_count[order])
+
     def _run_passes(self, step, what: str, *, site: str = "cind",
-                    phase_key: str | None = None, fp_extra=None):
+                    phase_key: str | None = None, fp_extra=None,
+                    ledger_sites=("exchange_c", "giant_gather"),
+                    block_layout: str = "rows"):
         """Pipelined dep-slice pass executor with the degradation ladder:
         exhausted grow retries double n_pass (up to RDFIND_MAX_PASS_SPLITS
-        times), then FallbackRequired.  Returns (host blocks, tail counters
-        transposed to per-counter tuples of ints)."""
+        times), then FallbackRequired.  `ledger_sites` names the exchanges
+        the step dispatches; `block_layout` "sketch" marks per-rank count-min
+        partials (digested by position, folded rather than re-sharded on an
+        elastic resume).  Returns (host blocks, tail counters transposed to
+        per-counter tuples of ints)."""
         phase_key = phase_key or site
         seq = self._phase_seq
         self._phase_seq += 1
@@ -1436,7 +1624,8 @@ class _Pipeline:
         while True:
             try:
                 return self._attempt_passes(step, what, site, phase_key, seq,
-                                            fp_extra,
+                                            fp_extra, ledger_sites,
+                                            block_layout=block_layout,
                                             allow_adopt=(n_splits == 0))
             except _PairCapsExhausted as e:
                 if faults.strict_mode():
@@ -1457,7 +1646,8 @@ class _Pipeline:
                     continue
                 raise faults.FallbackRequired(what, e.msg) from None
 
-    def _load_resume(self, phase_key, seq, fp_extra, what, allow_adopt):
+    def _load_resume(self, phase_key, seq, fp_extra, what, allow_adopt,
+                     block_layout="rows"):
         """(stage, fp, resumed passes) of the progress snapshots."""
         progress = self.progress
         if progress is None:
@@ -1469,20 +1659,27 @@ class _Pipeline:
         snap = progress.load(stage, fp)
         resumed = self._resolve_resume(snap, allow_adopt=allow_adopt)
         if resumed and snap.num_dev != self.num_dev:
-            nbytes = sum(np.asarray(b).nbytes
-                         for blocks_p, _ in resumed.values()
-                         for b in blocks_p)
-            resumed = {p: (_reshard_pass_rows(blocks_p, self.num_dev), tele_p)
-                       for p, (blocks_p, tele_p) in resumed.items()}
-            self._note_resume(from_num_dev=int(snap.num_dev),
-                              resharded_blocks=len(resumed),
-                              resharded_bytes=nbytes)
+            if block_layout == "rows":
+                nbytes = sum(np.asarray(b).nbytes
+                             for blocks_p, _ in resumed.values()
+                             for b in blocks_p)
+                resumed = {p: (_reshard_pass_rows(blocks_p, self.num_dev),
+                               tele_p)
+                           for p, (blocks_p, tele_p) in resumed.items()}
+                self._note_resume(from_num_dev=int(snap.num_dev),
+                                  resharded_blocks=len(resumed),
+                                  resharded_bytes=nbytes)
+            else:
+                # Count-min partials fold by a saturating add, which is
+                # grouping-insensitive: _ha_build_table absorbs any count.
+                self._note_resume(from_num_dev=int(snap.num_dev))
         if resumed and self._integrity_on:
-            resumed = self._verify_snapshot(resumed, what)
+            resumed = self._verify_snapshot(resumed, what, block_layout)
         return stage, fp, resumed
 
-    def _attempt_passes(self, step, what, site, phase_key, seq, fp_extra, *,
-                        allow_adopt=True):
+    def _attempt_passes(self, step, what, site, phase_key, seq, fp_extra,
+                        ledger_sites=("exchange_c", "giant_gather"), *,
+                        block_layout="rows", allow_adopt=True):
         """One ladder attempt of the pipelined pass loop: pass p+1 is
         dispatched before pass p is pulled (dispatch.pass_depth passes in
         flight); on overflow the in-flight successors are discarded, caps
@@ -1492,7 +1689,8 @@ class _Pipeline:
         meter = _SkewMeter(self.stats, what, self.mesh, self._meter_on)
         progress = self.progress
         stage, fp, resumed = self._load_resume(phase_key, seq, fp_extra,
-                                               what, allow_adopt)
+                                               what, allow_adopt,
+                                               block_layout)
         fc = (forecast.Forecaster(self.stats, self.n_pass, phase=what)
               if self.stats is not None and forecast.enabled() else None)
         now = time.perf_counter if meter.active else (lambda: 0.0)
@@ -1528,21 +1726,23 @@ class _Pipeline:
                         # Every dispatched pass moves its full fixed-shape
                         # exchange-C and giant-gather buffers, discarded
                         # optimistic dispatches included.
-                        pend = [
-                            exchange.log_exchange(
+                        pend = []
+                        if "exchange_c" in ledger_sites:
+                            pend.append(exchange.log_exchange(
                                 self.stats, "exchange_c",
                                 num_dev=self.num_dev, capacity=self.cap_c,
                                 lanes=_LANES_EXCHANGE_C, hosts=self.hosts,
                                 hier=hier_on,
                                 dcn_capacity=(self.cap_c_dcn if hier_on
-                                              else None)),
-                            exchange.log_exchange(
+                                              else None)))
+                        if "giant_gather" in ledger_sites:
+                            pend.append(exchange.log_exchange(
                                 self.stats, "giant_gather",
                                 num_dev=self.num_dev,
                                 capacity=min(
                                     self.cap_g,
                                     self.lines[0].shape[0]),
-                                lanes=_LANES_GIANT, hosts=self.hosts)]
+                                lanes=_LANES_GIANT, hosts=self.hosts))
                         t0 = time.perf_counter() if self._timed else 0.0
                         cols, n_out, tele = step(p_next)
                         if self._timed:
@@ -1595,8 +1795,9 @@ class _Pipeline:
                 agree_payload = None
                 if self._integrity_on:
                     parts[p] = self._verify_pull(parts[p], teles[p], p, what,
-                                                 cols, n_out)
-                    agree_payload = self._agreement_payload(parts[p], p)
+                                                 cols, n_out, block_layout)
+                    agree_payload = self._agreement_payload(parts[p], p,
+                                                            block_layout)
                 if self._datastats_on or fc is not None:
                     ngl_p, ngp_p, npt_p = teles[p][:3]
                     fr = {"pairs": ((npt_p - ngp_p)
@@ -1678,6 +1879,115 @@ class _Pipeline:
             metrics.counter_add(self.stats, "total_pairs", sum(npt))
         return blocks
 
+    def _flag_table(self, fcode, fv1, fv2, fflag, n_flags):
+        dev = self.mesh.device
+        return tuple(torch.as_tensor(np.ascontiguousarray(a)).to(dev)
+                     for a in (fcode, fv1, fv2, fflag)) + (int(n_flags[0]),)
+
+    def _ha_build_table(self, flags, stat_key, digest):
+        """Round 1 of the half-approximate round: per-pass, per-rank
+        count-min partials over the level's pair stream (the verification
+        passes' ladder and progress snapshots: an incomplete build would make
+        the cut unsound), then one saturating fold + all-reduce.  Returns the
+        global (ha_bits,) int32 table on the rank's device."""
+        def step(p):
+            return _s2l_sketch_build_step(
+                self.mesh, self.lines, self.n_rows, flags, p, self.n_pass,
+                cap_pairs=self.cap_p, cap_giant=self.cap_g,
+                cap_giant_pairs=self.cap_gp, skew=self.skew,
+                ha_bits=self.ha_bits, ha_hashes=self.ha_hashes)
+
+        blocks, (ngl, ngp, npt, *_) = self._run_passes(
+            step, "HA sketch build", site="cooc", phase_key=f"{stat_key}:ha1",
+            fp_extra={"flags": digest,
+                      "ha": [self.ha_bits, self.ha_hashes, self.ha_thresh]},
+            ledger_sites=("giant_gather",), block_layout="sketch")
+        # The pulled partials may come from another mesh size (an elastic
+        # resume): each is one row, zero-padded to the mesh (zero is the
+        # fold's identity) and split evenly; the saturating add folds any
+        # arrangement to the same min(cap, true sum) table.
+        parts = np.asarray(blocks[0], np.int32).reshape(-1, self.ha_bits)
+        pad = -parts.shape[0] % self.num_dev
+        if pad:
+            parts = np.concatenate(
+                [parts, np.zeros((pad, self.ha_bits), np.int32)])
+        mine = parts.reshape(self.num_dev, -1, self.ha_bits)[self.mesh.rank]
+        pend = [exchange.log_sketch_allreduce(
+            self.stats, num_dev=self.num_dev, bits=self.ha_bits,
+            hosts=self.hosts, hier=self.hier is not None)]
+        t0 = time.perf_counter() if self._timed else 0.0
+        with watchdog.collective(
+                "sketch", sum(e.get("bytes", 0) for e in pend)):
+            table = _ha_reduce_step(
+                self.mesh, torch.as_tensor(np.ascontiguousarray(mine)).to(
+                    self.mesh.device),
+                cap=sketch.MAX_COUNT_MIN_CAP, hier=self.hier)
+            if self._timed:
+                _sync(self.mesh)
+                exchange.log_dispatch_timing(
+                    self.stats, pend, (time.perf_counter() - t0) * 1e3)
+        if self.stats is not None:
+            metrics.counter_add(self.stats, "ha_build_rounds")
+            metrics.counter_add(self.stats, "total_pairs", sum(npt))
+            metrics.counter_max(self.stats, "n_giant_lines", max(ngl))
+            metrics.counter_add(self.stats, "n_giant_pairs", sum(ngp))
+            metrics.gauge_set(self.stats, "ha_sketch_bits", self.ha_bits)
+            metrics.gauge_set(self.stats, "ha_sketch_bytes",
+                              self.ha_bits * 4)
+            if self._datastats_on:
+                # The table's load factor: the dial for RDFIND_SHARDED_HA_BITS.
+                datastats.publish_cap_utilization(
+                    self.stats, {"ha_sketch": self.ha_bits},
+                    {"ha_sketch": int((table != 0).sum())})
+        return table
+
+    def run_cooc(self, fcode, fv1, fv2, fflag, n_flags, stat_key):
+        """One SmallToLarge level's verification over the resident lines:
+        the level's flag table (host arrays, replicated) joined onto the rows
+        and the masked pair phase.  Returns the host blocks (dep key, ref
+        key, cooc).  With the half-approximate round on, the round-1 table's
+        cut runs inside the pair phase (the same output)."""
+        # The flag table names the level: a progress snapshot of one level
+        # never satisfies another (the JAX package's fingerprint bytes).
+        digest = hashlib.sha256(b"".join(
+            np.ascontiguousarray(a).tobytes()
+            for a in (fcode, fv1, fv2, fflag, n_flags))).hexdigest()
+        flags = self._flag_table(fcode, fv1, fv2, fflag, n_flags)
+        ha_cut = None
+        if self.ha_on:
+            ha_cut = (self._ha_build_table(flags, stat_key, digest),
+                      self.ha_bits, self.ha_hashes, self.ha_thresh)
+
+        def step(p):
+            return _s2l_cooc_step(self.mesh, self.lines, self.n_rows, flags,
+                                  p, self.n_pass, ha_cut=ha_cut,
+                                  **self._pair_caps())
+
+        fp_extra = {"flags": digest}
+        if ha_cut is not None:
+            # The cut changes exchange C's contents: round-2 snapshots and
+            # knob-off ones never satisfy each other.
+            fp_extra["ha"] = [self.ha_bits, self.ha_hashes, self.ha_thresh]
+        blocks, (ngl, ngp, npt, nha, *_) = self._run_passes(
+            step, "sharded S2L cooc", site="cooc", phase_key=stat_key,
+            fp_extra=fp_extra)
+        if self.stats is not None:
+            metrics.gauge_set(self.stats, stat_key, sum(npt))
+            metrics.counter_add(self.stats, "total_pairs", sum(npt))
+            metrics.counter_max(self.stats, "n_giant_lines", max(ngl))
+            metrics.counter_add(self.stats, "n_giant_pairs", sum(ngp))
+            if ha_cut is not None:
+                metrics.counter_add(self.stats, "ha_cut_pairs", sum(nha))
+        return blocks
+
+
+def _pad_rows(t, n: int):
+    """`t` zero-padded along dim 0 to `n` rows (a rank's variable-length
+    output on the fixed-shape wire of an all_gather)."""
+    if t.shape[0] >= n:
+        return t
+    return torch.nn.functional.pad(t, (0, n - t.shape[0]))
+
 
 def _read_staged(staged) -> np.ndarray:
     host, done = staged
@@ -1686,23 +1996,51 @@ def _read_staged(staged) -> np.ndarray:
     return host[0].numpy()
 
 
-def _single_device_fallback(exc, triples, min_support, projections, use_fis,
-                            use_ars, clean_implied, stats, device):
+def _gather_rows(mesh, block, n_rows) -> np.ndarray:
+    """Every rank's valid prefix of its (t, ...) row block, concatenated in
+    rank order, on the host of every rank."""
+    counts = host_gather(mesh, torch.tensor([int(n_rows)], dtype=torch.int64,
+                                            device=mesh.device))
+    top = max(int(counts.max()), 1)
+    rows = host_gather(mesh, block[:top].contiguous())
+    rows = rows.reshape((mesh.size, -1) + tuple(block.shape[1:]))
+    return np.concatenate([rows[r, :int(counts[r])]
+                           for r in range(mesh.size)])
+
+
+def _gather_preshard_triples(mesh, preshard) -> np.ndarray:
+    """The host triple table of a preshard (the fallback rung trades the
+    no-host-table property for finishing the run: at a size one device
+    finishes, the table fits one host)."""
+    block, n_valid = preshard
+    return _gather_rows(mesh, block.to(mesh.device), n_valid)
+
+
+def _single_device_fallback(kind: str, exc, triples, preshard, min_support,
+                            projections, use_fis, use_ars, clean_implied,
+                            stats, mesh, **kwargs) -> CindTable:
     """The degradation ladder's last rung: re-run the workload on the
-    output-identical single-device AllAtOnce (every rank alike, no
-    collectives)."""
-    from . import allatonce
+    strategy family's output-identical single-device strategy (every rank
+    alike, no collectives after the preshard gather)."""
+    from . import allatonce, approximate, late_bb, small_to_large
+
+    fn = {"allatonce": allatonce.discover,
+          "small_to_large": small_to_large.discover,
+          "approximate": approximate.discover,
+          "late_bb": late_bb.discover}[kind]
     print(f"rdfind: sharded {exc.phase} could not complete ({exc.detail}); "
-          f"degrading to the single-device allatonce strategy",
+          f"degrading to the single-device {kind} strategy",
           file=sys.stderr)
-    faults.record_degradation(stats, exc.phase, "fallback",
-                              strategy="allatonce", reason=exc.detail)
-    return allatonce.discover(triples, min_support,
-                              projections=projections,
-                              use_frequent_condition_filter=use_fis,
-                              use_association_rules=use_ars,
-                              clean_implied=clean_implied, stats=stats,
-                              device=device)
+    faults.record_degradation(stats, exc.phase, "fallback", strategy=kind,
+                              reason=exc.detail)
+    if triples is None and preshard is not None:
+        triples = _gather_preshard_triples(mesh, preshard)
+    if triples is None or np.asarray(triples).shape[0] == 0:
+        return CindTable.empty()
+    return fn(np.asarray(triples, np.int32), min_support,
+              projections=projections, use_frequent_condition_filter=use_fis,
+              use_association_rules=use_ars, clean_implied=clean_implied,
+              stats=stats, device=mesh.device, **kwargs)
 
 
 def _publish_output_digest(stats, table):
@@ -1714,63 +2052,47 @@ def _publish_output_digest(stats, table):
             rows=int(np.asarray(table.support).shape[0]))
 
 
-def discover_sharded(triples, min_support: int, mesh=None,
-                     projections: str = "spo", use_fis: bool = False,
-                     use_ars: bool = False, clean_implied: bool = False,
-                     max_retries: int = 4, stats: dict | None = None,
-                     skew: SkewPolicy | None = None, combine: bool = True,
-                     progress=None, device=None) -> CindTable:
-    """Discover all CINDs with the AllAtOnce step sharded over the rank mesh.
-
-    Call it on every rank of a launch (``parallel/launch.py``; ``discover_on``
-    does both); with no mesh and no launch it runs on a one-rank mesh on
-    `device`.  Every rank returns the whole table, identical to
-    ``allatonce.discover`` with matching flags.  `stats` receives the skew
-    counters (n_giant_lines, n_giant_pairs), the capacity plan
-    (planned_caps), the exchange ledger (exchange_sites), the bytes that
-    crossed the wire (exchange_wire_bytes) and the transport (dist_backend,
-    staged).
-    """
-    if mesh is None:
-        mesh = make_mesh(device)
-    triples = np.asarray(triples, np.int32).reshape(-1, 3)
-    if triples.shape[0] == 0:
-        return CindTable.empty()
-    if not any(ch in projections for ch in "spo"):
-        return CindTable.empty()
-    min_support = max(int(min_support), 1)
-    use_ars = use_ars and use_fis
-
-    wire0 = exchange.wire_bytes()
-    try:
-        pipe = _Pipeline(mesh, triples, min_support, projections, use_fis,
-                         use_ars, max_retries, stats, skew=skew,
-                         combine=combine, progress=progress)
-        d_code, d_v1, d_v2, r_code, r_v1, r_v2, support = pipe.run_cinds()
-    except faults.FallbackRequired as e:
-        return _single_device_fallback(
-            e, triples, min_support, projections, use_fis, use_ars,
-            clean_implied, stats, mesh.device)
-    # What crossed the exchange wire, summed over the ranks (the ledger's
-    # exchange_sites count the fixed-shape buffers).
+def _publish_transport(mesh, stats, wire0: int) -> None:
+    """What crossed the exchange wire, summed over the ranks (the ledger's
+    exchange_sites count the fixed-shape buffers), and on the card every
+    rank's peak device memory (collectives on every rank)."""
     wire = mesh.psum(torch.tensor(exchange.wire_bytes() - wire0))
     metrics.gauge_set(stats, "exchange_wire_bytes", int(wire))
     if mesh.device.type == "cuda":
-        # Every rank's peak device memory (a collective on every rank).
         peak = torch.tensor([torch.cuda.max_memory_allocated(mesh.device)],
                             dtype=torch.int64, device=mesh.device)
         metrics.struct_set(stats, "peak_mem_bytes_per_rank",
                            mesh.all_gather(peak).reshape(-1).tolist())
 
-    table = CindTable(
-        dep_code=d_code.astype(np.int64), dep_v1=d_v1.astype(np.int64),
-        dep_v2=d_v2.astype(np.int64), ref_code=r_code.astype(np.int64),
-        ref_v1=r_v1.astype(np.int64), ref_v2=r_v2.astype(np.int64),
-        support=support.astype(np.int64))
+
+def _check_preshard(triples, preshard, use_ars, use_fis):
+    """Host table xor a preshard: (triples as int32 or None, use_ars).  With
+    a preshard, association rules are mined by the distributed miner."""
+    use_ars = use_ars and use_fis
+    if preshard is not None:
+        return None, use_ars
+    triples = np.asarray(triples, np.int32).reshape(-1, 3)
+    if triples.shape[0] == 0:
+        return None, use_ars
+    return triples, use_ars
+
+
+def _mine_rules(triples, preshard, min_support, mesh):
+    """The rule table of the AR filter: host mining over a host table, the
+    distributed miner over a preshard."""
+    if preshard is not None:
+        return mine_ars_sharded(preshard[0], preshard[1], min_support, mesh)
+    from . import allatonce
+    return frequency.mine_association_rules(
+        allatonce.triples_on(triples, mesh.device), min_support)
+
+
+def _finish_table(table, triples, preshard, min_support, use_ars,
+                  clean_implied, stats, mesh) -> CindTable:
+    """The AR filter, sharded minimality and the output digest."""
     if use_ars:
         from . import allatonce
-        rules = frequency.mine_association_rules(
-            allatonce.triples_on(triples, mesh.device), min_support)
+        rules = _mine_rules(triples, preshard, min_support, mesh)
         if stats is not None:
             metrics.struct_set(stats, "association_rules", rules)
         table = allatonce.filter_ar_implied_cinds(table, rules)
@@ -1780,20 +2102,617 @@ def discover_sharded(triples, min_support: int, mesh=None,
     return table
 
 
-def _rank_discover(mesh, triples, min_support, kwargs):
+def discover_sharded(triples, min_support: int, mesh=None,
+                     projections: str = "spo", use_fis: bool = False,
+                     use_ars: bool = False, clean_implied: bool = False,
+                     max_retries: int = 4, stats: dict | None = None,
+                     skew: SkewPolicy | None = None, combine: bool = True,
+                     preshard=None, progress=None, device=None) -> CindTable:
+    """Discover all CINDs with the AllAtOnce step sharded over the rank mesh.
+
+    Call it on every rank of a launch (``parallel/launch.py``; ``discover_on``
+    does both); with no mesh and no launch it runs on a one-rank mesh on
+    `device`.  Every rank returns the whole table, identical to
+    ``allatonce.discover`` with matching flags.  `stats` receives the skew
+    counters (n_giant_lines, n_giant_pairs), the capacity plan
+    (planned_caps), the exchange ledger (exchange_sites), the bytes that
+    crossed the wire (exchange_wire_bytes) and the transport (dist_backend,
+    staged).  `preshard` = (this rank's (t, 3) int32 row block, its valid
+    row count) replaces `triples` (which may then be None).
+    """
+    if mesh is None:
+        mesh = make_mesh(device)
+    triples, use_ars = _check_preshard(triples, preshard, use_ars, use_fis)
+    if triples is None and preshard is None:
+        return CindTable.empty()
+    if not any(ch in projections for ch in "spo"):
+        return CindTable.empty()
+    min_support = max(int(min_support), 1)
+
+    wire0 = exchange.wire_bytes()
+    try:
+        pipe = _Pipeline(mesh, triples, min_support, projections, use_fis,
+                         use_ars, max_retries, stats, skew=skew,
+                         combine=combine, preshard=preshard,
+                         progress=progress)
+        d_code, d_v1, d_v2, r_code, r_v1, r_v2, support = pipe.run_cinds()
+    except faults.FallbackRequired as e:
+        return _single_device_fallback(
+            "allatonce", e, triples, preshard, min_support, projections,
+            use_fis, use_ars, clean_implied, stats, mesh)
+    _publish_transport(mesh, stats, wire0)
+    table = CindTable(
+        dep_code=d_code.astype(np.int64), dep_v1=d_v1.astype(np.int64),
+        dep_v2=d_v2.astype(np.int64), ref_code=r_code.astype(np.int64),
+        ref_v1=r_v1.astype(np.int64), ref_v2=r_v2.astype(np.int64),
+        support=support.astype(np.int64))
+    return _finish_table(table, triples, preshard, min_support, use_ars,
+                         clean_implied, stats, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Strategies 1-3 over the resident join lines.
+# ---------------------------------------------------------------------------
+
+
+class _ShardedCooc:
+    """The verification backend of the lattice and of the candidate rounds:
+    each call ships the flagged captures as a replicated flag table and runs
+    the masked pair phase on the mesh (the analog of the reference's
+    broadcast candidate Bloom filters)."""
+
+    def __init__(self, pipe: _Pipeline, cap_table):
+        self.pipe = pipe
+        self.cap_code, self.cap_v1, self.cap_v2, self.dep_count = cap_table
+
+    def cooc(self, dep_ok, ref_ok, stat_key):
+        """Global (dep, ref) -> co-occurrence counts of flagged capture
+        pairs, as capture ids of the table."""
+        from .small_to_large import _lookup_capture_ids
+
+        sel = np.flatnonzero(dep_ok | ref_ok)
+        z = np.zeros(0, np.int64)
+        if sel.size == 0:
+            return z, z, z
+        flag = dep_ok[sel].astype(np.int32) * 2 + ref_ok[sel].astype(np.int32)
+        cap_f = segments.pow2_capacity(sel.size)
+
+        def pad(a, fill):
+            return np.concatenate([a, np.full(cap_f - a.shape[0], fill,
+                                              a.dtype)])
+
+        d_code, d_v1, d_v2, r_code, r_v1, r_v2, cnt = self.pipe.run_cooc(
+            pad(self.cap_code[sel].astype(np.int32), SENTINEL),
+            pad(self.cap_v1[sel].astype(np.int32), SENTINEL),
+            pad(self.cap_v2[sel].astype(np.int32), SENTINEL),
+            pad(flag, 0), np.full(1, sel.size, np.int32), stat_key)
+        d = _lookup_capture_ids(self.cap_code, self.cap_v1, self.cap_v2,
+                                d_code.astype(np.int64),
+                                d_v1.astype(np.int64), d_v2.astype(np.int64))
+        r = _lookup_capture_ids(self.cap_code, self.cap_v1, self.cap_v2,
+                                r_code.astype(np.int64),
+                                r_v1.astype(np.int64), r_v2.astype(np.int64))
+        ok = (d >= 0) & (r >= 0)
+        return d[ok], r[ok], cnt[ok].astype(np.int64)
+
+
+# Dependents per K2 launch of the sketch stage (the single-device tile).
+SKETCH_DEP_TILE = 1 << 12
+# The sketch stage holds (rows x bits) Bloom bytes on a rank at once.
+SKETCH_PLANES_BUDGET = int(os.environ.get("RDFIND_SKETCH_PLANES_BUDGET",
+                                          4 << 30))
+# When set, the sketch stage keeps its first K2 operands in K2_TILE (the
+# chip check's real tile); off by default.
+KEEP_K2_TILE = False
+K2_TILE: dict = {}
+
+
+def _and_blocks(mesh, partial, block: int) -> torch.Tensor:
+    """The AND over ranks of `partial`'s rows [rank * block, (rank + 1) *
+    block): one all_to_all of packed words sends block j to rank j (a
+    reduce-scatter by AND; the JAX package takes the pmin of the 0/1 planes
+    and slices its block)."""
+    d = mesh.size
+    if d == 1:
+        return partial
+    w = partial.shape[1]
+    recv = mesh.all_to_all(partial.reshape(d, block * w))
+    own = recv[0].clone()
+    for j in range(1, d):
+        own &= recv[j]
+    return own.reshape(block, w)
+
+
+def _sketch_step(mesh, lines, n_rows, cap_cols, n_caps: int, *, c_pad: int,
+                 bits: int, num_hashes: int):
+    """This rank's candidate pairs of the sketch round: the Bloom rows of its
+    lines, the per-dependent AND of those (partial across ranks, then the
+    AND of the rank's own dependent block), and K2 on the block against
+    every ref, tile by tile.  Returns (dep ids, ref ids, count) as int32
+    tensors in dep-major, ref-ascending order; rank order is dep order."""
+    jv, code, v1, v2 = lines
+    dev = jv.device
+    n = jv.shape[0]
+    valid = torch.arange(n, device=dev) < n_rows
+    cap_idx = segments.padded_table_index(list(cap_cols), n_caps,
+                                          [code, v1, v2], valid)
+    ok = valid & (cap_idx >= 0)
+    cap_id = torch.clamp(cap_idx, min=0).to(torch.int32)
+    starts = segments.run_starts([torch.where(valid, jv, SENTINEL)]) & valid
+    line_gid = torch.cumsum(starts.to(torch.int64), 0) - 1
+    n_lines = int(starts.sum())
+    partial = torch.full((c_pad, bits // 32), -1, dtype=torch.int32,
+                         device=dev)
+    if n_lines:
+        blooms = sketch.build_line_blooms(line_gid, cap_id, ok,
+                                          num_lines=n_lines, bits=bits,
+                                          num_hashes=num_hashes)
+        sketch.intersect_dep_sketches_acc(partial, cap_id, line_gid, blooms,
+                                          ok)
+    block = c_pad // mesh.size
+    own = _and_blocks(mesh, partial, block)
+    dep_lo = mesh.rank * block
+
+    kernels.check_contains_library(dev)
+    ref_ids = torch.arange(c_pad, dtype=torch.int32, device=dev)
+    ref_ok = ref_ids < n_caps
+    ref_pack = sketch.pack_ref_bits(ref_ids, bits=bits, num_hashes=num_hashes)
+    tile = cooc_ops.tile_for(block, SKETCH_DEP_TILE)
+    deps, refs = [], []
+    for lo in range(0, block, tile):
+        if KEEP_K2_TILE and lo == 0:
+            K2_TILE.update(sketch=own[:tile].contiguous(),
+                           ref_packed=ref_pack[0], ref_popc=ref_pack[1])
+        cand = sketch.contains_matrix(own[lo:lo + tile], ref_ids, ref_ok,
+                                      bits=bits, num_hashes=num_hashes,
+                                      ref_pack=ref_pack)
+        g = dep_lo + lo + torch.arange(tile, dtype=torch.int32, device=dev)
+        cand &= (g < n_caps)[:, None]
+        cand &= g[:, None] != ref_ids[None, :]
+        d, r = torch.nonzero(cand, as_tuple=True)
+        deps.append((d + dep_lo + lo).to(torch.int32))
+        refs.append(r.to(torch.int32))
+    dep = torch.cat(deps)
+    return dep, torch.cat(refs), dep.shape[0]
+
+
+def _sharded_sketch_candidates(pipe, cap_table, bits: int, num_hashes: int,
+                               stats):
+    """(cand_dep, cand_ref) capture-id pairs of the mesh-tiled containment
+    test over the frequent-capture table, in the JAX package's order."""
+    rows_cap = pipe.lines[0].shape[0]
+    if rows_cap * bits > SKETCH_PLANES_BUDGET:
+        raise ValueError(
+            f"sharded sketch stage would materialize ~{rows_cap * bits >> 30} "
+            f"GiB of line-bloom planes per rank; lower sketch_bits or use "
+            f"strategy 0/1 (RDFIND_SKETCH_PLANES_BUDGET overrides)")
+    cap_code, cap_v1, cap_v2, _ = cap_table
+    num_caps = cap_code.shape[0]
+    # A multiple of 128 per rank: the rank blocks tile the table exactly.
+    c_pad = cooc_ops.cap_pad(num_caps, mult=128 * pipe.num_dev)
+    if stats is not None:
+        metrics.struct_set(stats, "sketch_plan",
+                           {"c_real": int(num_caps), "c_pad": int(c_pad)})
+
+    def pad(a):
+        return torch.as_tensor(np.concatenate(
+            [a.astype(np.int32),
+             np.full(c_pad - num_caps, SENTINEL, np.int32)])).to(
+                 pipe.mesh.device)
+
+    with pipe._stage("sketch"):
+        dep, ref, n = _sketch_step(
+            pipe.mesh, pipe.lines, pipe.n_rows,
+            (pad(cap_code), pad(cap_v1), pad(cap_v2)), num_caps, c_pad=c_pad,
+            bits=bits, num_hashes=num_hashes)
+        d, r = pipe.collect_blocks([dep, ref], n)
+    if stats is not None:
+        metrics.gauge_set(stats, "n_sketch_candidates", int(d.size))
+    return d.astype(np.int64), r.astype(np.int64)
+
+
+def _frequent_captures(pipe, min_support, stats, n_triples):
+    """The pipeline's capture table cut to the frequent captures (no other
+    capture is in a CIND on either side), with the run's table statistics;
+    None when none is frequent."""
+    cap_code, cap_v1, cap_v2, dep_count = pipe.capture_table()
+    freq = dep_count >= min_support
+    cap_table = tuple(a[freq] for a in (cap_code, cap_v1, cap_v2, dep_count))
+    if cap_table[0].shape[0] == 0:
+        return None
+    if stats is not None:
+        metrics.set_many(stats, n_triples=n_triples,
+                         n_captures=int(cap_table[0].shape[0]),
+                         total_pairs=0)
+    return cap_table
+
+
+def _n_triples(mesh, triples, preshard) -> int:
+    if preshard is None:
+        return int(triples.shape[0])
+    return int(mesh.psum(torch.tensor(int(preshard[1]))))
+
+
+def _table_of(cap_table, d, r, sup) -> CindTable:
+    cap_code, cap_v1, cap_v2, _ = cap_table
+    return CindTable(dep_code=cap_code[d], dep_v1=cap_v1[d],
+                     dep_v2=cap_v2[d], ref_code=cap_code[r],
+                     ref_v1=cap_v1[r], ref_v2=cap_v2[r], support=sup)
+
+
+def _sharded_prep_approx(triples, min_support, mesh, projections, use_fis,
+                         use_ars, max_retries, sketch_bits, sketch_hashes,
+                         stats, skew=None, combine=True, preshard=None,
+                         progress=None):
+    """Shared set-up of strategies 2 and 3: the pipeline, the frequent
+    capture table, the sketch candidates and the verification backend; None
+    when no capture is frequent."""
+    pipe = _Pipeline(mesh, triples, min_support, projections, use_fis,
+                     use_ars, max_retries, stats, skew=skew, combine=combine,
+                     preshard=preshard, progress=progress)
+    cap_table = _frequent_captures(pipe, min_support, stats,
+                                   _n_triples(mesh, triples, preshard))
+    if cap_table is None:
+        return None
+    cand_dep, cand_ref = _sharded_sketch_candidates(
+        pipe, cap_table, sketch_bits, sketch_hashes, stats)
+    return cap_table, cand_dep, cand_ref, _ShardedCooc(pipe, cap_table)
+
+
+def discover_sharded_approx(triples, min_support: int, mesh=None,
+                            projections: str = "spo", use_fis: bool = False,
+                            use_ars: bool = False, clean_implied: bool = False,
+                            max_retries: int = 4,
+                            sketch_bits: int = sketch.DEFAULT_BITS,
+                            sketch_hashes: int = sketch.DEFAULT_HASHES,
+                            stats: dict | None = None,
+                            skew: SkewPolicy | None = None,
+                            combine: bool = True, preshard=None,
+                            progress=None, device=None) -> CindTable:
+    """Sharded ApproximateAllAtOnce (strategy 2): the mesh-tiled sketch
+    containment (K2 on every rank's dependent block) for candidates, the
+    sharded pair phase for their exact verification.  Output equals
+    ``approximate.discover`` (= the raw AllAtOnce output)."""
+    from . import small_to_large
+
+    if mesh is None:
+        mesh = make_mesh(device)
+    triples, use_ars = _check_preshard(triples, preshard, use_ars, use_fis)
+    if triples is None and preshard is None:
+        return CindTable.empty()
+    if not any(ch in projections for ch in "spo"):
+        return CindTable.empty()
+    min_support = max(int(min_support), 1)
+
+    wire0 = exchange.wire_bytes()
+    try:
+        prep = _sharded_prep_approx(
+            triples, min_support, mesh, projections, use_fis, use_ars,
+            max_retries, sketch_bits, sketch_hashes, stats, skew=skew,
+            combine=combine, preshard=preshard, progress=progress)
+        if prep is None:
+            return CindTable.empty()
+        cap_table, cand_dep, cand_ref, backend = prep
+        cap_code, cap_v1, cap_v2, dep_count = cap_table
+        with backend.pipe._stage("verify"):
+            d, r, sup = small_to_large._verify_level(
+                backend.cooc, cand_dep, cand_ref, cap_code.shape[0],
+                dep_count, cap_code, cap_v1, cap_v2, min_support,
+                "pairs_verify", mesh.device)
+    except faults.FallbackRequired as e:
+        return _single_device_fallback(
+            "approximate", e, triples, preshard, min_support, projections,
+            use_fis, use_ars, clean_implied, stats, mesh,
+            sketch_bits=sketch_bits, sketch_hashes=sketch_hashes)
+    _publish_transport(mesh, stats, wire0)
+    return _finish_table(_table_of(cap_table, d, r, sup), triples, preshard,
+                         min_support, use_ars, clean_implied, stats, mesh)
+
+
+def discover_sharded_late_bb(triples, min_support: int, mesh=None,
+                             projections: str = "spo", use_fis: bool = False,
+                             use_ars: bool = False,
+                             clean_implied: bool = False,
+                             max_retries: int = 4,
+                             sketch_bits: int = sketch.DEFAULT_BITS,
+                             sketch_hashes: int = sketch.DEFAULT_HASHES,
+                             stats: dict | None = None,
+                             skew: SkewPolicy | None = None,
+                             combine: bool = True, preshard=None,
+                             progress=None, device=None) -> CindTable:
+    """Sharded LateBB (strategy 3): one mesh-tiled sketch round, then the
+    unary-dependent round and the 1/x-pruned binary round verify on the
+    mesh.  Output equals ``late_bb.discover``."""
+    from . import small_to_large
+
+    if mesh is None:
+        mesh = make_mesh(device)
+    triples, use_ars = _check_preshard(triples, preshard, use_ars, use_fis)
+    if triples is None and preshard is None:
+        return CindTable.empty()
+    if not any(ch in projections for ch in "spo"):
+        return CindTable.empty()
+    min_support = max(int(min_support), 1)
+
+    wire0 = exchange.wire_bytes()
+    dev = mesh.device
+    try:
+        prep = _sharded_prep_approx(
+            triples, min_support, mesh, projections, use_fis, use_ars,
+            max_retries, sketch_bits, sketch_hashes, stats, skew=skew,
+            combine=combine, preshard=preshard, progress=progress)
+        if prep is None:
+            return CindTable.empty()
+        cap_table, cand_dep, cand_ref, backend = prep
+        cap_code, cap_v1, cap_v2, dep_count = cap_table
+        num_caps = cap_code.shape[0]
+        dep_is_unary = np.asarray(cc.is_unary(cap_code))[cand_dep]
+        with backend.pipe._stage("verify"):
+            d1, r1, sup1 = small_to_large._verify_level(
+                backend.cooc, cand_dep[dep_is_unary], cand_ref[dep_is_unary],
+                num_caps, dep_count, cap_code, cap_v1, cap_v2, min_support,
+                "pairs_round1", dev)
+            c2_dep = cand_dep[~dep_is_unary]
+            c2_ref = cand_ref[~dep_is_unary]
+            keep = small_to_large._prune_22_vs_12(
+                c2_dep, c2_ref, d1, r1, cap_code, cap_v1, cap_v2, dev)
+            d2, r2, sup2 = small_to_large._verify_level(
+                backend.cooc, c2_dep[keep], c2_ref[keep], num_caps,
+                dep_count, cap_code, cap_v1, cap_v2, min_support,
+                "pairs_round2", dev)
+    except faults.FallbackRequired as e:
+        return _single_device_fallback(
+            "late_bb", e, triples, preshard, min_support, projections,
+            use_fis, use_ars, clean_implied, stats, mesh,
+            sketch_bits=sketch_bits, sketch_hashes=sketch_hashes)
+    if stats is not None:
+        metrics.set_many(stats, n_round1_cinds=len(d1),
+                         n_round2_cinds=len(d2))
+    _publish_transport(mesh, stats, wire0)
+    table = _table_of(cap_table, np.concatenate([d1, d2]),
+                      np.concatenate([r1, r2]), np.concatenate([sup1, sup2]))
+    return _finish_table(table, triples, preshard, min_support, use_ars,
+                         clean_implied, stats, mesh)
+
+
+def discover_sharded_s2l(triples, min_support: int, mesh=None,
+                         projections: str = "spo", use_fis: bool = True,
+                         use_ars: bool = False, clean_implied: bool = False,
+                         max_retries: int = 4, stats: dict | None = None,
+                         skew: SkewPolicy | None = None,
+                         combine: bool = True, preshard=None, progress=None,
+                         device=None) -> CindTable:
+    """Sharded SmallToLarge (strategy 1, the reference's default): the join
+    lines are built once and stay resident; every rank drives the
+    single-device lattice logic (``small_to_large._run_lattice``) over the
+    replicated capture table, each level's verification a masked pair phase
+    over the mesh.  Output equals ``small_to_large.discover``."""
+    from . import small_to_large
+
+    if mesh is None:
+        mesh = make_mesh(device)
+    triples, use_ars = _check_preshard(triples, preshard, use_ars, use_fis)
+    if triples is None and preshard is None:
+        return CindTable.empty()
+    if not any(ch in projections for ch in "spo"):
+        return CindTable.empty()
+    min_support = max(int(min_support), 1)
+
+    wire0 = exchange.wire_bytes()
+    try:
+        pipe = _Pipeline(mesh, triples, min_support, projections, use_fis,
+                         use_ars, max_retries, stats, skew=skew,
+                         combine=combine, preshard=preshard,
+                         progress=progress)
+        cap_table = _frequent_captures(pipe, min_support, stats,
+                                       _n_triples(mesh, triples, preshard))
+        if cap_table is None:
+            return CindTable.empty()
+        cap_code, cap_v1, cap_v2, dep_count = cap_table
+        backend = _ShardedCooc(pipe, cap_table)
+        rules = (_mine_rules(triples, preshard, min_support, mesh)
+                 if use_ars else None)
+        if use_ars and stats is not None:
+            metrics.struct_set(stats, "association_rules", rules)
+        with pipe._stage("lattice"):
+            table = small_to_large._run_lattice(
+                backend.cooc, cap_code, cap_v1, cap_v2, dep_count,
+                cap_code.shape[0], min_support, use_ars, rules,
+                clean_implied, stats, mesh.device, mesh=mesh)
+    except faults.FallbackRequired as e:
+        return _single_device_fallback(
+            "small_to_large", e, triples, preshard, min_support, projections,
+            use_fis, use_ars, clean_implied, stats, mesh)
+    _publish_transport(mesh, stats, wire0)
+    _publish_output_digest(stats, table)
+    return table
+
+
+# The entry point of each strategy id on the mesh.
+STRATEGIES = {0: discover_sharded, 1: discover_sharded_s2l,
+              2: discover_sharded_approx, 3: discover_sharded_late_bb}
+
+
+# ---------------------------------------------------------------------------
+# Preshard stages: the driver's stages over rows no host held whole.
+# ---------------------------------------------------------------------------
+
+
+def _preshard_valid(block, n_valid, mesh):
+    block = block.to(mesh.device)
+    return block, torch.arange(block.shape[0], device=mesh.device) < n_valid
+
+
+def _retry_exchange(what: str, cap_name: str, attempt, capacity: int,
+                    num_dev: int, max_retries: int):
+    """Run `attempt(capacity)` -> (result, overflow) until the mesh-summed
+    overflow is 0, growing the capacity; RuntimeError when it persists."""
+    for _ in range(max_retries):
+        out, ovf = attempt(capacity)
+        ovf = int(ovf)
+        if ovf == 0:
+            return out
+        capacity = segments.pow2_capacity(2 * capacity + ovf)
+        _check_exchange_caps(num_dev, **{cap_name: capacity})
+    raise RuntimeError(f"{what} exchange overflow persisted after "
+                       f"{max_retries} retries (ovf={ovf})")
+
+
+def count_fcs_sharded(g_triples, g_valid, min_support: int, mesh,
+                      include_binary: bool, max_retries: int = 4):
+    """(n_unary, n_binary or None) distinct frequent conditions over a
+    preshard (the distributed --find-only-fcs report): per field group the
+    distinct keys meet at their hash owner, which counts its frequent ones."""
+    block, valid = _preshard_valid(g_triples, g_valid, mesh)
+    groups = [(f,) for f in range(3)]
+    if include_binary:
+        groups += [(0, 1), (0, 2), (1, 2)]
+    ms = max(int(min_support), 1)
+
+    def attempt(capacity):
+        counts, ovf = [], 0
+        for i, fields in enumerate(groups):
+            n_u, o = exchange.global_distinct_frequent(
+                [block[:, f] for f in fields], valid, ms, mesh, capacity,
+                seed=101 + i)
+            counts.append(int(n_u))
+            ovf += int(o)
+        return counts, ovf
+
+    counts = _retry_exchange(
+        "frequent-condition", "fcs", attempt,
+        _headroom(-(-block.shape[0] // mesh.size)), mesh.size, max_retries)
+    return (int(sum(counts[:3])),
+            int(sum(counts[3:])) if include_binary else None)
+
+
+def join_histogram_sharded(g_triples, g_valid, projections: str, mesh,
+                           max_retries: int = 4):
+    """(line size, number of lines of that size) pairs over a preshard (the
+    distributed --create-join-histogram pass): the distinct join rows meet at
+    their value's owner, where each line is one run."""
+    block, valid = _preshard_valid(g_triples, g_valid, mesh)
+    d = mesh.size
+    cands = emit_join_candidates(block, _no_filter(valid), projections)
+    u_cols, u_valid, _, _ = segments.padded_unique(
+        [cands.join_val, cands.code, cands.v1, cands.v2], cands.valid)
+    bucket = hashing.bucket_of([u_cols[0]], d, seed=433)
+
+    def attempt(capacity):
+        recv, recv_valid, ovf, _ = exchange.route(u_cols, u_valid, bucket,
+                                                  mesh, capacity)
+        return (recv, recv_valid), ovf
+
+    recv, recv_valid = _retry_exchange(
+        "join-histogram", "histogram", attempt,
+        _headroom(-(-9 * block.shape[0] // d)), d, max_retries)
+    r_cols, r_valid, _, _ = segments.padded_unique(recv, recv_valid)
+    sizes = segments.masked_weighted_row_counts(
+        [r_cols[0]], torch.ones_like(r_cols[0]), r_valid)
+    is_rep = segments.run_starts([r_cols[0]]) & r_valid
+    sizes_h = host_gather(mesh, torch.where(is_rep, sizes, 0))
+    sizes_h = sizes_h[sizes_h > 0]
+    sizes, times = np.unique(sizes_h, return_counts=True)
+    return list(zip(sizes.tolist(), times.tolist()))
+
+
+def mine_ars_sharded(g_triples, g_valid, min_support: int, mesh,
+                     max_retries: int = 4):
+    """Association rules over a preshard: the rule table of
+    ``frequency.mine_association_rules`` (as a set of rows), mined from count
+    exchanges and one route of the rule rows to their owner."""
+    block, valid = _preshard_valid(g_triples, g_valid, mesh)
+    d = mesh.size
+    ms = max(int(min_support), 1)
+    cap_counts = _headroom(-(-block.shape[0] // d))
+    cap_rules = _headroom(CAP_FLOOR)
+    for _ in range(max_retries):
+        ovf_c = 0
+        unary, binary = [], []
+        for f in range(3):
+            cnt, o = exchange.global_row_counts([block[:, f]], valid, mesh,
+                                                cap_counts, seed=401 + f)
+            unary.append(cnt.to(torch.int64))
+            ovf_c += int(o)
+        for k, (a, b) in enumerate(frequency._FIELD_PAIRS):
+            cnt, o = exchange.global_row_counts(
+                [block[:, a], block[:, b]], valid, mesh, cap_counts,
+                seed=404 + k)
+            binary.append(cnt.to(torch.int64))
+            ovf_c += int(o)
+        # Invalid rows count 0 < min_support: they emit no rule.
+        cols = [c.to(torch.int32) for c in
+                frequency.emit_rule_rows(block, ms, unary, binary)]
+        ok = torch.ones(cols[0].shape[0], dtype=torch.bool,
+                        device=mesh.device)
+        bucket = hashing.bucket_of(cols[:4], d, seed=419)
+        recv, recv_valid, o_r, _ = exchange.route(cols, ok, bucket, mesh,
+                                                  cap_rules)
+        o_r = int(o_r)
+        if ovf_c == 0 and o_r == 0:
+            break
+        if ovf_c:
+            cap_counts = segments.pow2_capacity(2 * cap_counts + ovf_c)
+        if o_r:
+            cap_rules = segments.pow2_capacity(2 * cap_rules + o_r)
+        _check_exchange_caps(d, ar_counts=cap_counts, ar_rules=cap_rules)
+    else:
+        raise RuntimeError(
+            f"association-rule exchange overflow persisted after "
+            f"{max_retries} retries (ovf={ovf_c}+{o_r})")
+    r_cols, r_valid, _, _ = segments.padded_unique(recv, recv_valid)
+    keep = host_gather(mesh, r_valid)
+    return [host_gather(mesh, c)[keep] for c in r_cols]
+
+
+def dedupe_preshard(g_triples, g_valid, mesh, max_retries: int = 4):
+    """Global distinct rows over a preshard (the distributed
+    --distinct-triples pass): rows meet at their hash owner, which keeps one
+    copy.  Returns (this rank's new block, its valid count, the total)."""
+    block, valid = _preshard_valid(g_triples, g_valid, mesh)
+    t_loc = block.shape[0]
+    d = mesh.size
+    cols = [block[:, i] for i in range(3)]
+    bucket = hashing.bucket_of(cols, d, seed=31)
+
+    def attempt(capacity):
+        recv, recv_valid, ovf, _ = exchange.route(cols, valid, bucket, mesh,
+                                                  capacity)
+        return (recv, recv_valid), ovf
+
+    recv, recv_valid = _retry_exchange(
+        "distinct-triples", "distinct", attempt, _headroom(-(-t_loc // d)),
+        d, max_retries)
+    u_cols, _, _, n_u = segments.padded_unique(recv, recv_valid)
+    n_u = int(n_u)
+    top = int(mesh.pmax(torch.tensor(n_u)))
+    if top > t_loc:
+        # A skewed hash can land more than t_loc distinct rows on one
+        # owner; the block slice must never truncate them.
+        raise RuntimeError(
+            f"distinct-triples owner block overflow (max owner rows={top} > "
+            f"t_loc={t_loc}); rerun with more devices")
+    out = torch.stack(u_cols[:3], dim=1)[:t_loc].contiguous()
+    return out, n_u, int(mesh.psum(torch.tensor(n_u)))
+
+
+def _rank_discover(mesh, strategy, triples, min_support, kwargs):
     stats: dict = {}
-    table = discover_sharded(triples, min_support, mesh=mesh, stats=stats,
-                             **kwargs)
+    table = STRATEGIES[strategy](triples, min_support, mesh=mesh,
+                                 stats=stats, **kwargs)
     return table, stats
 
 
-def discover_on(triples, min_support: int, world: int, *, device=None,
-                **kwargs):
-    """Spawn `world` ranks on this host, run ``discover_sharded`` on each and
-    return rank 0's (table, stats).  CUDA ranks unless `device` is "cpu":
-    NCCL, one GPU per rank (or gloo staged through host memory under
-    RDFIND_TORCH_DIST_BACKEND=gloo); "cpu" runs gloo ranks."""
+def discover_on(triples, min_support: int, world: int, *, strategy: int = 0,
+                device=None, **kwargs):
+    """Spawn `world` ranks on this host, run strategy `strategy` sharded on
+    each (``STRATEGIES``) and return rank 0's (table, stats).  CUDA ranks
+    unless `device` is "cpu": NCCL, one GPU per rank (or gloo staged through
+    host memory under RDFIND_TORCH_DIST_BACKEND=gloo); "cpu" runs gloo
+    ranks."""
     from ..parallel import launch
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown traversal strategy {strategy}")
     return launch.spawn(_rank_discover, world, device=device,
-                        args=(np.asarray(triples, np.int32), min_support,
-                              kwargs))
+                        args=(strategy, np.asarray(triples, np.int32),
+                              min_support, kwargs))

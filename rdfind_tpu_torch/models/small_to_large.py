@@ -789,12 +789,13 @@ def _verify_level(cooc_fn, cand_dep, cand_ref, num_caps, dep_count,
 
 def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
                  min_support, use_ars, rules, clean_implied, stats, device,
-                 cooc_fn_11=None) -> CindTable:
-    """The lattice walk on the chunked backend.
+                 cooc_fn_11=None, mesh=None) -> CindTable:
+    """The lattice walk on the chunked backend, or on the sharded one.
 
     cooc_fn(dep_ok, ref_ok, stat_key) -> (dep, ref, count): merged
     co-occurrence counts of the flagged capture pairs.  cooc_fn_11, when given,
-    replaces it on the 1/1 level (the balanced emission).
+    replaces it on the 1/1 level (the balanced emission).  `mesh` (the sharded
+    strategy's rank mesh) makes --clean-implied minimise over the mesh.
     """
     unary = np.asarray(cc.is_unary(cap_code))
 
@@ -894,7 +895,11 @@ def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
         ref_code=cap_code[all_r], ref_v1=cap_v1[all_r], ref_v2=cap_v2[all_r],
         support=np.concatenate([cind11_sup, cind12_sup, cind21_sup,
                                 cind22_sup]))
-    return minimality.minimize_table(table, device) if clean_implied else table
+    if not clean_implied:
+        return table
+    if mesh is not None:
+        return minimality.minimize_table_sharded(table, mesh)
+    return minimality.minimize_table(table, device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The RDFind CLI of the port: discover CINDs in RDF datasets on an NVIDIA GPU.
 
-The argument surface is the JAX package's CLI on one device: the same flags, names,
+The argument surface is the JAX package's CLI: the same flags, names,
 defaults and messages, small-to-large (1) the default strategy, native fused
 ingest the default read path.  The runtime and observability flags
 (``--checkpoint-dir``, ``--trace``, ``--metrics-file``, ``--profile-dir``,
@@ -9,17 +9,19 @@ are accepted for compatibility and noted when set.  Incremental discovery
 works as in the JAX package: ``--delta-state DIR`` makes a full run persist its
 base bundle and servable index, ``--delta DIR INSERTS --deletes DELETES``
 replays a change batch against it (exit 66 when the bundle cannot be trusted),
-and ``--console-port`` serves the live run console.  ``--dop N`` runs strategy 0
+and ``--console-port`` serves the live run console.  ``--dop N`` runs the strategy
 sharded over N ranks (one process each: NCCL on the card, gloo with
 ``--device cpu``), with the skew-engine flags, ``--no-combinable-join``,
 ``--coordinator``/``--num-hosts``/``--host-index`` for several hosts and the
-preemption supervisor ``--retry-on-preempt``.  The flags of the sharded ingest
-are rejected with a message naming them; none is silently ignored.
+preemption supervisor ``--retry-on-preempt``.  ``--sharded-ingest`` makes each
+host parse only its own file subset (``--interning`` partitioned or
+replicated); no host then holds the whole triple table.
 
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
         --output cinds.txt [--traversal-strategy 0|1|2|3] [--device cpu]
     python -m rdfind_tpu_torch.programs.rdfind data.nt --support 10 \\
-        --traversal-strategy 0 --dop 4 [--device cpu] [--retry-on-preempt 2]
+        --dop 4 [--traversal-strategy 0|1|2|3] [--device cpu] \\
+        [--retry-on-preempt 2] [--sharded-ingest --interning partitioned]
 """
 
 from __future__ import annotations
@@ -28,11 +30,9 @@ import argparse
 import sys
 
 STRATEGIES = (0, 1, 2, 3)
-_ITEM_2B = "ROADMAP.md, queue 1, item 2b"
-_INGEST = f"the sharded multi-host ingest ({_ITEM_2B})"
 # Flags of the JAX package's CLI whose machinery the port does not have yet,
-# rejected with a pointer to the work queue.
-UNPORTED = {"--sharded-ingest": _INGEST, "--interning": _INGEST}
+# rejected with a pointer to the work queue: none is left.
+UNPORTED: dict = {}
 # Accepted for compatibility: behaviour built in or subsumed, noted when set.
 _NO_EFFECT = (
     ("no_bulk_merge", "merging is always windowed segment-sum here"),
@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rdfind-torch",
         description="Discover Conditional Inclusion Dependencies in RDF datasets "
-                    "(PyTorch/CUDA port; one device).")
+                    "(PyTorch/CUDA port).")
     p.add_argument("inputs", nargs="*",
                    help="input .nt/.nq[.gz] files or globs (for --delta "
                         "runs these are the INSERT batch; may be empty for "
@@ -143,8 +143,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--counters", type=int, default=0, dest="counter_level")
     p.add_argument("--dop", type=int, default=1,
                    help="degree of parallelism = number of ranks in the mesh "
-                        "(strategy 0; one process per rank: one GPU each on "
-                        "the card, gloo processes with --device cpu)")
+                        "(every strategy; one process per rank: one GPU each "
+                        "on the card, gloo processes with --device cpu)")
+    p.add_argument("--sharded-ingest", action="store_true",
+                   help="each host parses only its file subset and donates "
+                        "rows to its own devices (multi-host; no host holds "
+                        "the full triple table; all four traversal "
+                        "strategies run on the presharded arrays)")
+    p.add_argument("--interning", choices=("auto", "partitioned",
+                                           "replicated"), default="auto",
+                   help="sharded-ingest dictionary mode: partitioned = each "
+                        "host stores only its value-hash range (multi-host "
+                        "default; decode is a collective), replicated = "
+                        "every host holds the union; auto picks partitioned "
+                        "when multi-host")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="multi-host run: the rendezvous store's address on "
                         "host 0 (every host runs the same command with its "
@@ -255,7 +267,8 @@ def main(argv=None) -> int:
         parser.error("no input files (positional inputs may only be empty "
                      "for a delete-only --delta run with --deletes)")
     if args.delta_base:
-        for flag, bad in (("--only-read", args.only_read),
+        for flag, bad in (("--sharded-ingest", args.sharded_ingest),
+                          ("--only-read", args.only_read),
                           ("--do-only-join", args.only_join),
                           ("--find-only-fcs", args.find_only_fcs),
                           ("--checkpoint-dir", args.checkpoint_dir)):
@@ -283,10 +296,6 @@ def main(argv=None) -> int:
                          f"{args.num_hosts} hosts")
     if args.dop < 1:
         parser.error(f"--dop must be >= 1, got {args.dop}")
-    if args.dop > 1 and args.traversal_strategy != 0:
-        parser.error(f"--dop {args.dop} runs strategy 0 only; the sharded "
-                     f"strategies 1-3 are not ported yet ({_ITEM_2B}); pass "
-                     f"--traversal-strategy 0")
     if args.dop > 1 and args.delta_base:
         parser.error("--dop is not supported with --delta (the delta engine "
                      "replays host-side against the base bundle)")
@@ -338,6 +347,8 @@ def main(argv=None) -> int:
         rebalance_threshold=args.rebalance_threshold,
         rebalance_max_load=args.rebalance_max_load,
         combinable_join=not args.no_combinable_join,
+        sharded_ingest=args.sharded_ingest,
+        interning=args.interning,
         coordinator=args.coordinator,
         num_hosts=args.num_hosts,
         host_index=args.host_index,

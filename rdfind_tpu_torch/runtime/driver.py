@@ -21,13 +21,16 @@ change batch against such a bundle (``runtime/delta.py``), and
 ``RDFIND_SERVE_INDEX`` names one more directory every run writes its index to
 (``runtime/serving.py``).
 
-``--dop N`` runs strategy 0 sharded over N ranks (``models/sharded.py``): the
-launcher (``parallel/launch.py``) spawns one process per rank, each runs this
-driver SPMD, global rank 0 writes the run's sinks and each host's local rank 0
-its host-level files (checkpoints, progress snapshots, trace, metrics export,
-heartbeat).  The preemption supervisor (``--retry-on-preempt``) runs in the
-launcher's parent: a preempted attempt's ranks exit 75, and the parent backs
-off and relaunches them, resuming from the progress snapshots.
+``--dop N`` runs the strategy sharded over N ranks (``models/sharded.py``,
+all four strategies): the launcher (``parallel/launch.py``) spawns one process
+per rank, each runs this driver SPMD, global rank 0 writes the run's sinks and
+each host's local rank 0 its host-level files (checkpoints, progress
+snapshots, trace, metrics export, heartbeat).  The preemption supervisor
+(``--retry-on-preempt``) runs in the launcher's parent: a preempted attempt's
+ranks exit 75, and the parent backs off and relaunches them, resuming from the
+progress snapshots.  ``--sharded-ingest`` makes each host parse only its own
+file subset (``runtime/multihost_ingest.py``) and runs the driver's stages over
+those rows, which no host holds whole.
 """
 
 from __future__ import annotations
@@ -115,6 +118,8 @@ class Config:
     rebalance_threshold: float = 1.0  # scales the avg-load split factor
     rebalance_max_load: float = 10_000.0 * 10_000.0  # absolute split trigger
     combinable_join: bool = True  # False: ship raw join candidates
+    sharded_ingest: bool = False  # each host parses only its file subset
+    interning: str = "auto"  # sharded-ingest dictionary: partitioned|replicated
     coordinator: str | None = None  # "host:port" of the multi-host store
     num_hosts: int = 1
     host_index: int = 0
@@ -252,14 +257,27 @@ _STRATEGY_PLANS = {
 
 def describe_plan(cfg: Config) -> dict:
     """A JSON-able description of the stages this config will execute."""
-    pre = ["read+parse"]
-    if cfg.asciify_triples:
-        pre.append("asciify")
-    if cfg.prefix_paths:
-        pre.append("shorten-urls")
-    pre.append("intern")
-    if cfg.distinct_triples:
-        pre.append("distinct")
+    if cfg.sharded_ingest:
+        mode = ("replicated dictionary exchange"
+                if cfg.interning == "replicated"
+                else "hash-partitioned interning")
+        pre = [f"sharded-ingest (per-host parse+intern, {mode}, "
+               "per-device row donation)"]
+        pre = (["asciify (per-host, during parse)"] if cfg.asciify_triples
+               else []) + \
+              (["shorten-urls (per-host, during parse)"] if cfg.prefix_paths
+               else []) + pre
+        if cfg.distinct_triples:
+            pre.append("distinct (hash-owner row dedup)")
+    else:
+        pre = ["read+parse"]
+        if cfg.asciify_triples:
+            pre.append("asciify")
+        if cfg.prefix_paths:
+            pre.append("shorten-urls")
+        pre.append("intern")
+        if cfg.distinct_triples:
+            pre.append("distinct")
     discover = list(_STRATEGY_PLANS.get(cfg.traversal_strategy, ["unknown"]))
     if cfg.use_frequent_item_set:
         discover.insert(0, "frequent-item-sets (condition-support filter)")
@@ -284,7 +302,7 @@ def describe_plan(cfg: Config) -> dict:
     return {
         "strategy": cfg.traversal_strategy,
         "n_devices": cfg.n_devices,
-        "backend": "sharded" if cfg.n_devices > 1 else "single-device",
+        "backend": "sharded-mesh" if cfg.n_devices > 1 else "single-device",
         "min_support": cfg.min_support,
         "projections": cfg.projections,
         "stages": {"ingest": pre, "discover": discover, "sinks": sinks},
@@ -439,33 +457,42 @@ def skew_from_cfg(cfg: Config):
         max_load=cfg.rebalance_max_load)
 
 
-def _discover_sharded(cfg: Config, ids, mesh, stats: dict, progress):
-    """Strategy 0 sharded over the launch's mesh."""
+def _discover_sharded(cfg: Config, ids, mesh, stats: dict, progress,
+                      preshard=None):
+    """The strategy sharded over the launch's mesh (every strategy id runs
+    on the mesh, as in the reference); `preshard` replaces `ids` after the
+    sharded ingest."""
     from ..models import sharded
-    if cfg.traversal_strategy != 0:
+    discover = sharded.STRATEGIES.get(cfg.traversal_strategy)
+    if discover is None:
         raise ValueError(
-            f"traversal strategy {cfg.traversal_strategy} is not ported to "
-            f"the sharded pipeline yet (ROADMAP.md, queue 1, item 2b); "
-            f"--dop > 1 runs strategy 0")
-    if cfg.merge_window_size > 0:
-        print("note: --merge-window-size only affects the single-device "
-              "chunked backend; the sharded run sizes its merge buffers from "
-              "measured loads", file=sys.stderr)
-    if cfg.explicit_threshold != -1:
-        print("note: --explicit-threshold configures the single-device "
-              "small-to-large strategy only; sharded runs bound 1/1 memory "
-              "via planned capacities + dep-slice passes "
-              "(RDFIND_PAIR_ROW_BUDGET)", file=sys.stderr)
-    if cfg.balanced_11:
-        print("note: --balanced-overlap-candidates is single-device only; "
-              "the sharded pair phase splits emission across ranks "
-              "(giant-line slicing)", file=sys.stderr)
+            f"unknown traversal strategy {cfg.traversal_strategy}")
+    if _is_primary():
+        if cfg.merge_window_size > 0:
+            print("note: --merge-window-size only affects the single-device "
+                  "chunked backend; the sharded run sizes its merge buffers "
+                  "from measured loads", file=sys.stderr)
+        if cfg.explicit_threshold != -1:
+            print("note: --explicit-threshold (spectral half-approximate "
+                  "1/1) configures the single-device chunked backend "
+                  "only; sharded runs bound 1/1 memory via planned "
+                  "capacities + dep-slice streaming passes "
+                  "(RDFIND_PAIR_ROW_BUDGET), and their distributed "
+                  "two-round count-min cut is the env knob "
+                  "RDFIND_SHARDED_HALF_APPROX=1 (bit-identical output)",
+                  file=sys.stderr)
+        if cfg.balanced_11:
+            print("note: --balanced-overlap-candidates is single-device "
+                  "only; the sharded 1/1 already splits emission across "
+                  "devices (giant-line slicing), so rotation ownership "
+                  "adds nothing there", file=sys.stderr)
     use_ars = cfg.use_association_rules and cfg.use_frequent_item_set
-    return sharded.discover_sharded(
+    return discover(
         ids, cfg.min_support, mesh=mesh, skew=skew_from_cfg(cfg),
         combine=cfg.combinable_join, progress=progress,
         projections=cfg.projections, use_fis=cfg.use_frequent_item_set,
-        use_ars=use_ars, clean_implied=cfg.clean_implied, stats=stats)
+        use_ars=use_ars, clean_implied=cfg.clean_implied, stats=stats,
+        preshard=preshard)
 
 
 def _discover(cfg: Config, ids, dev, stats: dict) -> CindTable:
@@ -706,6 +733,13 @@ def _run(cfg: Config) -> RunResult:
         # run's device.  It emits through the same sinks as a full run.
         return delta.run_delta(cfg, phases, counters, stats, dev)
     tracer.set_status(mode="full")
+    if cfg.sharded_ingest:
+        if cfg.delta_state and _is_primary():
+            print("note: --delta-state is not supported with "
+                  "--sharded-ingest yet; no delta bundle written",
+                  file=sys.stderr)
+        return _run_sharded_ingest(cfg, phases, counters, stats,
+                                   mesh or mesh_mod.make_mesh(dev), dev)
 
     use_native = _native_ingest(cfg)
     ckpt = ingest_fp = discover_fp = progress = None
@@ -834,6 +868,176 @@ def _run(cfg: Config) -> RunResult:
     _emit_sinks(cfg, phases, counters, table, dictionary, stats, ids, dev)
     _report(cfg, counters, phases.timings)
     return RunResult(table, dictionary, ids, counters, phases.timings)
+
+
+def _sharded_ingest_transform(cfg: Config):
+    """The token-local preprocessing (asciify, then URL shortening) each host
+    runs on its own shard while parsing, or None."""
+    steps = []
+    if cfg.asciify_triples:
+        steps.append(prefixes.asciify)
+    if cfg.prefix_paths:
+        trie, url_of = _load_prefix_trie(cfg)
+        steps.append(lambda v: prefixes.shorten_term(v, trie, url_of))
+    if not steps:
+        return None
+
+    def transform(v, _steps=tuple(steps)):
+        for f in _steps:
+            v = f(v)
+        return v
+    return transform
+
+
+def _run_sharded_ingest(cfg: Config, phases: _Phases, counters: dict,
+                        stats: dict, mesh, dev) -> RunResult:
+    """--sharded-ingest: each host parses and interns only its file subset
+    (``runtime/multihost_ingest.py``), and every later stage runs over the
+    ranks' row blocks (``models/sharded.py``'s preshard stages): no host
+    holds the whole triple table.  Stage names, counters and checkpoint
+    fingerprints are the JAX package's."""
+    from ..models import sharded
+    from . import multihost_ingest
+
+    paths, is_nq = _resolve_inputs(cfg)
+    transform = _sharded_ingest_transform(cfg)
+    ckpt = discover_fp = progress = None
+    ingest_fp = ""
+    if cfg.checkpoint_dir:
+        # The per-host parse cache and the discover stage extend the
+        # replicated payloads with the sharded layout knobs; the host count
+        # shapes the parse artifacts only, so a preempted run resumes its
+        # discover on another host count.
+        native_eff = multihost_ingest.native_parse_eligible(
+            cfg.native_ingest, transform, cfg.encoding)
+        ingest_payload, discover_payload = _checkpoint_payloads(cfg,
+                                                               native_eff)
+        # The cached artifact is the parse before --distinct-triples.
+        cache_payload = {k: v for k, v in ingest_payload.items()
+                         if k != "distinct"}
+        ingest_extra = dict(sharded=True, num_hosts=mesh.num_hosts,
+                            interning=cfg.interning)
+        discover_extra = dict(sharded=True, interning=cfg.interning)
+        ckpt = checkpoint.CheckpointStore(cfg.checkpoint_dir)
+        ingest_fp = checkpoint.fingerprint({**cache_payload, **ingest_extra})
+        discover_fp = checkpoint.fingerprint({**discover_payload,
+                                              **discover_extra})
+        progress = checkpoint.ProgressStore(ckpt, discover_fp,
+                                            writer=_is_host_primary())
+
+    def ingest():
+        hit: list = []
+        out = multihost_ingest.sharded_ingest(
+            paths, mesh, tabs=cfg.tabs, expect_quad=is_nq,
+            encoding=cfg.encoding, use_native=cfg.native_ingest,
+            partition_dictionary={"auto": None, "partitioned": True,
+                                  "replicated": False}[cfg.interning],
+            transform=transform, cache=ckpt, cache_fp=ingest_fp,
+            cache_hit=hit, stats=stats)
+        # "The run skipped parsing" only when every rank hit its cache.
+        if hit and _all_ranks_agree(hit[0]):
+            counters["resumed-ingest"] = 1
+        return out
+
+    block, n_valid, dictionary, total = phases.run("sharded-ingest", ingest)
+    counters["input-triples"] = total
+    counters["distinct-values"] = len(dictionary)
+    _ingest_counters(counters, stats)
+
+    def early_stop():
+        _report(cfg, counters, phases.timings)
+        return RunResult(CindTable.empty(), dictionary, None, counters,
+                         phases.timings)
+
+    if cfg.only_read:
+        # The sharded ingest interns as it parses: "read" includes interning.
+        return early_stop()
+    g = (block, n_valid)
+    if cfg.distinct_triples:
+        def dedupe():
+            out = sharded.dedupe_preshard(*g, mesh)
+            counters["distinct-triples"] = out[2]
+            return out[:2]
+        g = phases.run("distinct", dedupe)
+
+    if cfg.create_join_histogram:
+        def histogram():
+            hist = sharded.join_histogram_sharded(*g, cfg.projections, mesh)
+            if _is_primary():
+                for size, times in hist:
+                    print(f"Join size {size} encountered {times}x")
+        phases.run("join-histogram", histogram)
+
+    if cfg.only_join:
+        return early_stop()
+
+    if cfg.find_only_fcs >= 1:
+        def mine_fcs():
+            n_unary, n_binary = sharded.count_fcs_sharded(
+                *g, cfg.min_support, mesh,
+                include_binary=cfg.find_only_fcs >= 2)
+            counters["frequent-single-conditions"] = n_unary
+            if n_binary is not None:
+                counters["frequent-double-conditions"] = n_binary
+                if cfg.use_association_rules and cfg.use_frequent_item_set:
+                    rules = sharded.mine_ars_sharded(*g, cfg.min_support,
+                                                     mesh)
+                    counters["association-rules"] = len(rules[0])
+        phases.run("frequent-conditions", mine_fcs)
+        return early_stop()
+
+    if (cfg.use_association_rules and not cfg.use_frequent_item_set
+            and _is_primary()):
+        print("note: --use-ars has no effect without --use-fis "
+              "(association rules are mined from the frequent-item sets)",
+              file=sys.stderr)
+    # One stage file per host: hosts sharing a checkpoint dir must not race,
+    # and hosts with private dirs each hold a copy for the resume vote.
+    discover_stage = f"discover-host{mesh.host_index}"
+    table = None
+    if ckpt is not None:
+        stored = ckpt.load(discover_stage, discover_fp)
+        if _all_ranks_agree(stored is not None):
+            table = phases.run("resume-discover",
+                               lambda: checkpoint.decode_cinds(stored))
+            metrics.restore(stats, checkpoint.decode_stats(stored))
+            counters["resumed-discover"] = 1
+    if table is None:
+        table = phases.run("discover", lambda: _discover_sharded(
+            cfg, None, mesh, stats, progress, preshard=g))
+        if ckpt is not None and _is_host_primary():
+            def save_discover():
+                arrays = checkpoint.encode_cinds(table)
+                arrays.update(checkpoint.encode_stats(stats))
+                _safe_save(ckpt, discover_stage, discover_fp, arrays,
+                           counters)
+                progress.cleanup()
+            phases.run("checkpoint-discover", save_discover)
+    counters["cind-counter"] = len(table)
+    if cfg.attempt:
+        counters["supervisor-attempts"] = cfg.attempt
+        metrics.counter_add(None, "preempt_supervisor_retries", cfg.attempt)
+    if (cfg.ar_output_file and cfg.use_frequent_item_set
+            and "association_rules" not in stats):
+        # --ar-output without --use-ars: mine the rules over the row blocks.
+        metrics.struct_set(stats, "association_rules", phases.run(
+            "mine-ars", lambda: sharded.mine_ars_sharded(
+                *g, cfg.min_support, mesh)))
+    if isinstance(dictionary, multihost_ingest.PartitionedDictionary):
+        # No host holds the union: decoding the output (its condition values
+        # and any mined rule values) is a collective every rank joins.
+        rules = stats.get("association_rules")
+        extra = (np.concatenate([rules[2], rules[3]])
+                 if rules is not None else None)
+        dictionary = phases.run(
+            "resolve-dictionary",
+            lambda: dictionary.resolve_table(table, extra_ids=extra))
+    if not _is_primary():
+        return RunResult(table, dictionary, None, counters, phases.timings)
+    counters.update({f"stat-{k}": v for k, v in stats.items()})
+    _emit_sinks(cfg, phases, counters, table, dictionary, stats, None, dev)
+    _report(cfg, counters, phases.timings)
+    return RunResult(table, dictionary, None, counters, phases.timings)
 
 
 def _all_ranks_agree(flag: bool) -> bool:

@@ -4,7 +4,13 @@
 numbers (``GOLDEN_SHARDED``): for each workload and mesh size, the capacity
 plan (``planned_caps``), the pass count (``n_pair_passes``) and the giant-line
 statistics (``n_giant_lines``, ``n_giant_pairs``) of the JAX package's
-``discover_sharded`` on a CPU mesh of fake devices.
+``discover_sharded`` on a CPU mesh of fake devices.  For strategies 2 and 3
+(``GOLDEN_SHARDED_S123``) it records the sketch stage of the JAX package's
+``discover_sharded_approx`` (``sketch_plan``, ``n_sketch_candidates``: the
+pipeline, its capture table and ``_sharded_sketch_candidates``, no pair
+phase) and the rounds of LateBB (``n_round1_cinds``, ``n_round2_cinds``:
+exact verification results, equal at every mesh size, so read off the
+single-device ``late_bb.discover``).
 
 A full-size pair phase does not fit a CPU run (dbpedia2m's giant lines alone
 emit 3.1e8 pairs), so the script builds the JAX package's ``_Pipeline`` (plan,
@@ -20,8 +26,12 @@ against the statistics of a complete ``discover_sharded`` on a small workload.
     python scripts/record_sharded_goldens.py --check            # ~1 min
     python scripts/record_sharded_goldens.py headline:1 headline:4
     python scripts/record_sharded_goldens.py dbpedia2m:1 dbpedia2m:4
+    python scripts/record_sharded_goldens.py headline:1:2 headline:4:2 \
+        headline:1:3
 
-Each WORKLOAD:DEVICES argument prints one JSON line.  Four devices run with
+Each WORKLOAD:DEVICES[:STRATEGY] argument prints one JSON line (strategy 0
+when left out; strategy 3 takes one device).  The strategy-2 sketch stage at
+one device holds ~6 GB of host memory for the headline's Bloom planes.  Four devices run with
 the pair row budget of chip_smoke's four-rank runs (2^23 rows per pass), one
 device with the default.  The frequent-condition filter is on, as there.
 dbpedia2m takes 35-80 s and 4.3 GB of host memory per run, the headline
@@ -111,9 +121,34 @@ def record(triples, support, devices: int) -> dict:
                               for k, v in stats["planned_caps"].items()})
 
 
+SKETCH_KEYS = ("sketch_plan", "n_sketch_candidates", "n_captures")
+ROUND_KEYS = ("n_round1_cinds", "n_round2_cinds")
+
+
+def record_sketch(triples, support, devices: int) -> dict:
+    """The sketch stage of discover_sharded_approx (default sketch: 2048
+    bits, 4 hashes; frequent-condition filter on): its plan and candidates."""
+    stats = {}
+    pipe = sharded._Pipeline(make_mesh(devices), triples, support, "spo",
+                             True, False, 4, stats)
+    cap_code, cap_v1, cap_v2, dep_count = pipe.capture_table()
+    freq = dep_count >= support
+    cap_table = tuple(a[freq] for a in (cap_code, cap_v1, cap_v2, dep_count))
+    stats["n_captures"] = int(cap_table[0].shape[0])
+    sharded._sharded_sketch_candidates(pipe, cap_table, 2048, 4, stats)
+    return {k: stats[k] for k in SKETCH_KEYS}
+
+
+def record_rounds(triples, support) -> dict:
+    from rdfind_tpu.models import late_bb
+    stats = {}
+    late_bb.discover(triples, support, stats=stats)
+    return {k: int(stats[k]) for k in ROUND_KEYS}
+
+
 def check() -> None:
-    """The reading above against a complete discover_sharded, at a pair row
-    budget small enough for giant lines and hundreds of passes."""
+    """The readings above against complete runs, at a pair row budget small
+    enough for giant lines and hundreds of passes."""
     os.environ["RDFIND_PAIR_ROW_BUDGET"] = "4096"
     t = synth.generate_triples(3000, seed=42)
     for devices in (1, 4):
@@ -128,6 +163,23 @@ def check() -> None:
             raise SystemExit(f"{devices} devices: read {got}, the complete "
                              f"run gives {want}")
         print(f"check {devices} devices: {got}", flush=True)
+        got = record_sketch(t, 2, devices)
+        st = {}
+        sharded.discover_sharded_approx(t, 2, mesh=make_mesh(devices),
+                                        stats=st, use_fis=True)
+        if got != {k: st[k] for k in SKETCH_KEYS}:
+            raise SystemExit(f"{devices} devices, strategy 2: read {got}, "
+                             f"the complete run gives "
+                             f"{ {k: st[k] for k in SKETCH_KEYS} }")
+        print(f"check {devices} devices, strategy 2: {got}", flush=True)
+    got = record_rounds(t, 2)
+    st = {}
+    sharded.discover_sharded_late_bb(t, 2, mesh=make_mesh(4), stats=st,
+                                     use_fis=True)
+    if got != {k: st[k] for k in ROUND_KEYS}:
+        raise SystemExit(f"strategy 3: one device gives {got}, four "
+                         f"{ {k: st[k] for k in ROUND_KEYS} }")
+    print(f"check strategy 3, 1 and 4 devices: {got}", flush=True)
 
 
 def main() -> int:
@@ -138,7 +190,8 @@ def main() -> int:
     if args.check:
         check()
     for run in args.runs:
-        name, devices = run.split(":")
+        name, devices, *strategy = run.split(":")
+        strategy = int(strategy[0]) if strategy else 0
         gen, support, sha = WORKLOADS[name]
         t = np.asarray(gen(), np.int32)
         got_sha = hashlib.sha1(t.tobytes()).hexdigest()[:12]
@@ -149,8 +202,17 @@ def main() -> int:
         else:
             os.environ.pop("RDFIND_PAIR_ROW_BUDGET", None)
         t0 = time.perf_counter()
-        out = record(t, support, int(devices))
+        if strategy == 0:
+            out = record(t, support, int(devices))
+        elif strategy == 2:
+            out = record_sketch(t, support, int(devices))
+        elif strategy == 3 and int(devices) == 1:
+            out = record_rounds(t, support)
+        else:
+            raise SystemExit(f"{run}: strategies 0 and 2 at any device "
+                             f"count, 3 at one device")
         print(json.dumps(dict(workload=name, devices=int(devices),
+                              strategy=strategy,
                               seconds=round(time.perf_counter() - t0, 1),
                               **out)), flush=True)
         jax.clear_caches()

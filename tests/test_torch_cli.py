@@ -1,12 +1,15 @@
 """The port's CLI against the JAX package's: byte-identical output files for the
-same input and flags, the same association-rule files, standard output (plan JSON,
+same input and flags (also with --dop and --sharded-ingest, which now run every
+strategy), the same association-rule files, standard output (plan JSON,
 histogram lines, collected CINDs) and counter lines, the runtime and
-observability flags accepted, every flag of the sharded pipeline and the
-preemption supervisor rejected by name, and the delta flags' misuse rejected as
-the JAX CLI rejects it."""
+observability flags accepted, the misuse of the sharded pipeline's, the
+preemption supervisor's and the delta flags rejected as the JAX CLI rejects
+it."""
 
 import gzip
 import json
+import os
+import time
 
 import jax
 import numpy as np
@@ -99,12 +102,11 @@ def test_default_strategy_writes_the_jax_file(small_nt_file, tmp_path, flags):
 
 @pytest.mark.parametrize("argv,needle", [
     # The sharded pipeline's flags are ported: their misuse is rejected.
-    (["--traversal-strategy", "1", "--dop", "2"], "item 2b"),
     (["--coordinator", "127.0.0.1:1", "--host-index", "3"], "--host-index"),
     (["--num-hosts", "2"], "--num-hosts"),
     (["--host-index", "1"], "--host-index"),
-    (["--sharded-ingest"], "--sharded-ingest"),
-    (["--interning", "replicated"], "--interning"),
+    (["--interning", "scattered"], "--interning"),
+    (["--delta", "bundle", "--sharded-ingest"], "--sharded-ingest"),
     (["--rebalance-strategy", "3"], "--rebalance-strategy"),
     (["--rebalance-max-load=x"], "--rebalance-max-load"),
     (["--rebalance-threshold", "x"], "--rebalance-threshold"),
@@ -124,33 +126,55 @@ def test_unported_flags_are_rejected_by_name(nt_file, capsys, argv, needle):
     assert needle in capsys.readouterr().err
 
 
-def test_unported_holds_exactly_the_fifteen_flags():
-    """Only the sharded ingest's two flags are left, pointing to item 2b."""
-    assert sorted(tcli.UNPORTED) == ["--interning", "--sharded-ingest"]
-    assert all("ROADMAP.md, queue 1, item 2b" in why
-               for why in tcli.UNPORTED.values())
+def test_unported_is_empty():
+    """Every flag of the JAX CLI is ported: nothing is rejected by name, and
+    the sharded ingest's two flags parse with the JAX CLI's defaults."""
+    assert tcli.UNPORTED == {}
+    args = tcli.build_parser().parse_args(["d.nt"])
+    assert (args.sharded_ingest, args.interning) == (False, "auto")
+
+
+def run_both_files(args, capsys, tmp_path):
+    """Both CLIs on the same argv, for runs whose reports the port's ranks
+    print from their own processes: equal stdout and output files."""
+    want = tmp_path / "jax.txt"
+    got = tmp_path / "torch.txt"
+    assert jcli.main(args + ["--output", str(want)]) == 0
+    j = capsys.readouterr()
+    assert tcli.main(args + ["--output", str(got), "--device", "cpu"]) == 0
+    t = capsys.readouterr()
+    assert t.out == j.out
+    assert want.read_bytes().count(b"\n") > 0
+    assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--traversal-strategy", "1", "--dop", "2"],
+    ["--sharded-ingest"],
+    ["--interning", "replicated"],
+])
+def test_formerly_unported_flags_match_jax(small_nt_file, capsys, tmp_path,
+                                           argv):
+    run_both_files([small_nt_file, "--support", "3", *argv], capsys,
+                   tmp_path)
 
 
 @pytest.mark.parametrize("strategy", ["1", "2", "3"])
-def test_dop_with_an_unported_strategy_names_item_2b(nt_file, capsys,
-                                                      strategy):
-    with pytest.raises(SystemExit) as exc:
-        tcli.main([nt_file, "--traversal-strategy", strategy, "--dop", "4",
-                   "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "item 2b" in err and "--traversal-strategy 0" in err
+def test_dop_runs_every_strategy_like_jax(small_nt_file, capsys, tmp_path,
+                                          strategy):
+    run_both_files([small_nt_file, "--support", "3", "--traversal-strategy",
+                    strategy, "--dop", "4"], capsys, tmp_path)
 
 
 def test_sharded_flags_match_the_jax_cli():
-    """--dop and the skew, supervisor and multi-host flags: the JAX CLI's
-    defaults and choices."""
+    """--dop, the sharded ingest's and the skew, supervisor and multi-host
+    flags: the JAX CLI's defaults and choices."""
     jargs = {a.dest: a for a in jcli.build_parser()._actions}
     targs = {a.dest: a for a in tcli.build_parser()._actions}
     for dest in ("dop", "coordinator", "num_hosts", "host_index",
                  "no_combinable_join", "rebalance_strategy",
                  "rebalance_max_load", "rebalance_threshold",
-                 "retry_on_preempt"):
+                 "retry_on_preempt", "sharded_ingest", "interning"):
         assert targs[dest].default == jargs[dest].default, dest
         assert targs[dest].choices == jargs[dest].choices, dest
 
@@ -213,6 +237,35 @@ def _keyed(err):
     return out
 
 
+def settle_jax_native():
+    """Load the JAX package's native ingest library, or fail saying why.
+
+    In a fresh checkout the JAX package builds the library on first use,
+    with `make` writing straight into its target; a test process that loads
+    it while another one is still writing it caches the failed load for its
+    whole life, and its JAX CLI then reads through the Python ingest.  So
+    when the library is unavailable here while its file exists, wait until
+    the file's size holds still, forget the cached failure and load again."""
+    from rdfind_tpu.io import native as jnative
+
+    if jnative.available():
+        return
+    path = jnative._SO_PATH
+    deadline = time.monotonic() + 120
+    last = -1
+    while time.monotonic() < deadline:
+        size = os.path.getsize(path) if os.path.exists(path) else -1
+        if size > 0 and size == last:
+            break
+        last = size
+        time.sleep(1.0)
+    jnative._lib = None
+    jnative._lib_error = None
+    assert jnative.available(), (
+        f"the JAX package's native ingest library does not load: "
+        f"{jnative._lib_error}")
+
+
 def run_both(args, capsys, tmp_path):
     """Both CLIs on the same argv (the port's output files renamed); asserts
     equal stdout, output files, AR files and stderr lines (but VARIES) and
@@ -223,6 +276,7 @@ def run_both(args, capsys, tmp_path):
             out.append(a.replace("@", str(tmp_path / tag)))
         return out
 
+    settle_jax_native()
     assert jcli.main(files("jax")) == 0
     j = capsys.readouterr()
     assert tcli.main(files("torch") + ["--device", "cpu"]) == 0

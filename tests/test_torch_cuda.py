@@ -628,3 +628,59 @@ def test_nccl_with_more_ranks_than_cards_raises(cuda, monkeypatch):
     t, s = _sharded_case()
     with pytest.raises(RuntimeError, match=f"{n} local ranks asked for"):
         sharded.discover_on(t, s, n, device="cuda")
+
+
+def test_sharded_strategy2_on_one_nccl_rank_launches_k2(cuda, monkeypatch):
+    """Sharded strategy 2 on a one-rank NCCL group: the rank's sketch stage
+    launches K2, and the table equals the single-device strategy 2 on the
+    card (exact)."""
+    import torch_rank_cases
+    from rdfind_tpu_torch.models import approximate
+    from rdfind_tpu_torch.parallel import launch, mesh
+
+    monkeypatch.delenv(mesh.BACKEND_ENV, raising=False)
+    t, s = _sharded_case()
+    want = approximate.discover(t, s, use_frequent_condition_filter=True,
+                                device=cuda)
+    got = launch.spawn(torch_rank_cases.launches_case, 1, device="cuda",
+                       args=(2, np.asarray(t, np.int32), s,
+                             dict(use_fis=True)))
+    assert got["rows"] == want.to_rows()
+    assert got["k2_launches"][0] > 0
+    assert got["stats"]["dist_backend"] == "nccl"
+    _ran_its_own_passes(got["stats"])
+
+
+def test_sharded_ingest_dop2_on_the_card(cuda, tmp_path):
+    """--sharded-ingest --dop 2 on the card (two ranks over staged gloo)
+    writes the single-device CLI's file byte for byte."""
+    import os
+    import subprocess
+    import sys
+
+    t, s = _sharded_case()
+    terms = [f"<e{i}>" for i in range(int(np.max(t)) + 1)]
+    shards = []
+    for i in range(3):
+        shards.append(str(tmp_path / f"part{i}.nt"))
+        with open(shards[-1], "w") as f:
+            f.write("".join(f"{terms[a]} {terms[b]} {terms[c]} .\n"
+                            for a, b, c in t[i::3]))
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+    def cli(out, *flags, env=None):
+        r = subprocess.run(
+            [sys.executable, "-m", "rdfind_tpu_torch.programs.rdfind",
+             *shards, "--support", str(s), "--output", str(out), *flags],
+            capture_output=True, text=True, timeout=600, cwd=repo,
+            env={**os.environ, **(env or {})})
+        assert r.returncode == 0, r.stderr[-3000:]
+        return r.stderr
+
+    cli(tmp_path / "one.txt")
+    err = cli(tmp_path / "two.txt", "--sharded-ingest", "--dop", "2",
+              "--counters", "1", env={"RDFIND_TORCH_DIST_BACKEND": "gloo"})
+    want = (tmp_path / "one.txt").read_bytes()
+    assert want.count(b"\n") > 0
+    assert (tmp_path / "two.txt").read_bytes() == want
+    assert "stat-world_size: 2" in err and "stat-staged: 1" in err

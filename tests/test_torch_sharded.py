@@ -1,15 +1,18 @@
-"""The port's sharded AllAtOnce pipeline against the JAX package, on the CPU.
+"""The port's sharded strategies against the JAX package, on the CPU.
 
-``discover_sharded`` runs on gloo rank groups of 2, 4 and 8 (one launch per
-group, several cases each; the rank side is ``torch_rank_cases.sharded_cases``).
-Its CIND table (``to_rows()``) and output digest must equal the JAX package's
-single-device ``allatonce.discover`` on the same triples (JAX's own tests hold
-that equal to its ``discover_sharded``).  On one workload the planned
-capacities, the skew statistics, the pass count and the exchange ledger's
-bytes per site must equal the JAX package's ``discover_sharded`` at 4 and at 8
-devices.  The 8-rank group also runs the twin of the JAX package's
-``__graft_entry__.dryrun_multichip`` strategy-0 part, held against the port's
-oracle.  Tolerance: exact equality throughout.
+The four sharded strategies run on gloo rank groups of 2, 4 and 8 (one launch
+per group, several cases each; the rank side is
+``torch_rank_cases.sharded_cases``).  Every CIND table (``to_rows()``) and
+output digest must equal the JAX package's single-device twin on the same
+triples (``allatonce``, ``small_to_large``, ``approximate``, ``late_bb``:
+JAX's own tests hold those equal to its ``discover_sharded*``), also where the
+ladder falls back to one device.  On one workload per strategy the planned
+capacities, the skew, sketch, lattice, round and half-approximate statistics
+and the exchange ledger's bytes per site must equal the JAX package's
+``discover_sharded*`` at 4 devices (strategy 0 also at 8).  The 8-rank group
+also runs the twin of the JAX package's ``__graft_entry__.dryrun_multichip``
+strategy-0 part, held against the port's oracle.  Tolerance: exact equality
+throughout.
 """
 
 import jax
@@ -18,7 +21,10 @@ import pytest
 
 import torch_rank_cases
 from rdfind_tpu.models import allatonce as jallatonce
+from rdfind_tpu.models import approximate as japproximate
+from rdfind_tpu.models import late_bb as jlate_bb
 from rdfind_tpu.models import sharded as jsharded
+from rdfind_tpu.models import small_to_large as jsmall_to_large
 from rdfind_tpu.obs import integrity as jintegrity
 from rdfind_tpu.parallel.mesh import make_mesh
 from rdfind_tpu_torch import oracle as toracle
@@ -55,11 +61,33 @@ def _small():
                                              n_entities=30), np.int32)
 
 
+def _tiny():
+    return np.asarray(synth.generate_triples(60, seed=7, n_predicates=4,
+                                             n_entities=16), np.int32)
+
+
 EMPTY = np.zeros((0, 3), np.int32)
 BUDGET64 = {"RDFIND_PAIR_ROW_BUDGET": "64"}
+HA = {"RDFIND_SHARDED_HALF_APPROX": "1"}
+# The 2-host factorization (2, 2) of a 4-rank mesh, and the flat exchange
+# attributed to the same two hosts.
+HIER = {"RDFIND_HIER_EXCHANGE": "1", "RDFIND_HIER_HOSTS": "2"}
+FLAT2 = {"RDFIND_HIER_EXCHANGE": "0", "RDFIND_HIER_HOSTS": "2"}
+# Every pass of the verification overflows: with one try per pass and no
+# split the ladder falls back to the single-device twin at once.
+FALLBACK = {"RDFIND_FAULTS": "overflow@cooc:times=-1",
+            "RDFIND_MAX_PASS_SPLITS": "0", "RDFIND_BACKOFF_BASE_MS": "1"}
+
+
+def _s(strategy, **kw):
+    """kwargs of a strategy 1-3 case (use_fis explicit: the sharded and the
+    single-device strategy 1 default it differently)."""
+    return dict(strategy=strategy, use_fis=kw.pop("use_fis", False), **kw)
+
 
 # name -> (world, triples, support, kwargs, env).  Every case's table is
-# checked against JAX; "stats4"/"stats8" also against JAX discover_sharded.
+# checked against JAX; "stats4"/"stats8" and "s{1,2,3}stats4"/"s1ha_stats4"
+# also against JAX's discover_sharded*.
 CASES = {
     "projection_so": (2, _plain, 3, dict(projections="so"), {}),
     "projection_p": (2, _plain, 3, dict(projections="p"), {}),
@@ -75,9 +103,49 @@ CASES = {
     "stats4": (4, _hot, 2, dict(use_fis=True), {}),
     "dryrun_twin": (8, _hot, 2, dict(minimize=True), BUDGET64),
     "stats8": (8, _hot, 2, dict(use_fis=True), {}),
+    # Strategies 1-3 (SmallToLarge, Approximate, LateBB).
+    "s1_projection_so": ("2s", _plain, 3, _s(1, projections="so"), {}),
+    "s2_projection_p": ("2s", _plain, 3, _s(2, projections="p"), {}),
+    "s3_projection_po": ("2s", _plain, 3, _s(3, projections="po"), {}),
+    "s1_empty": ("2s", lambda: EMPTY, 2, _s(1), {}),
+    "s1_clean_implied": ("2s", _plain, 3, _s(1, clean_implied=True), {}),
+    "s2_clean_implied": ("2s", _plain, 3, _s(2, clean_implied=True), {}),
+    "s3_clean_implied": ("2s", _plain, 3, _s(3, clean_implied=True), {}),
+    "s1_fallback": ("2s", _small, 2, _s(1, max_retries=1), FALLBACK),
+    "s2_fallback": ("2s", _small, 2, _s(2, max_retries=1), FALLBACK),
+    "s3_fallback": ("2s", _small, 2, _s(3, max_retries=1), FALLBACK),
+    "s1_fis_ars": ("4s", _plain, 3, _s(1, use_fis=True, use_ars=True), {}),
+    "s2_fis_ars": ("4s", _plain, 3, _s(2, use_fis=True, use_ars=True), {}),
+    "s3_fis_ars": ("4s", _plain, 3, _s(3, use_fis=True, use_ars=True), {}),
+    "s1_hot": ("4s", _hot, 2, _s(1), {}),
+    "s2_hot": ("4s", _hot, 2, _s(2), {}),
+    "s1_budget64": ("4s", _tiny, 2, _s(1), BUDGET64),
+    "s2_budget64": ("4s", _tiny, 2, _s(2), BUDGET64),
+    "s3_budget64": ("4s", _tiny, 2, _s(3), BUDGET64),
+    "s1_ha": ("4s", _hot, 2, _s(1), HA),
+    "s2_ha": ("4s", _hot, 2, _s(2), HA),
+    "s1_ha_hier": ("4s", _hot, 2, _s(1), {**HA, **HIER}),
+    "s1_ha_flat2": ("4s", _hot, 2, _s(1), {**HA, **FLAT2}),
+    "s1_flat_hier": ("4s", _hot, 2, _s(1), HIER),
+    "s1stats4": ("4s", _hot, 2, _s(1, use_fis=True), {}),
+    "s2stats4": ("4s", _hot, 2, _s(2, use_fis=True), {}),
+    "s3stats4": ("4s", _hot, 2, _s(3, use_fis=True), {}),
+    "s1ha_stats4": ("4s", _hot, 2, _s(1, use_fis=True), HA),
+    "s1_eight": ("8s", _plain, 3, _s(1), {}),
+    "s2_eight": ("8s", _hot, 2, _s(2, use_fis=True), {}),
+    "s3_eight": ("8s", _hot, 2, _s(3), {}),
 }
 STATS = ("planned_caps", "n_giant_lines", "n_giant_pairs", "n_pair_passes",
          "rebalance")
+# The statistics of strategies 1-3 held against JAX's discover_sharded_*.
+S123_STATS = STATS + tuple(
+    k for k in torch_rank_cases.SUMMARY_STATS
+    if k not in STATS + ("dist_backend", "staged", "degradations"))
+TWINS = {0: jallatonce.discover, 1: jsmall_to_large.discover,
+         2: japproximate.discover, 3: jlate_bb.discover}
+JAX_SHARDED = {1: jsharded.discover_sharded_s2l,
+               2: jsharded.discover_sharded_approx,
+               3: jsharded.discover_sharded_late_bb}
 
 
 def _jax_kwargs(kwargs):
@@ -89,11 +157,17 @@ def _jax_kwargs(kwargs):
     return out
 
 
-def _port_results(world):
+def _world(group) -> int:
+    """A case's launch group: its rank count, with a suffix for a second
+    group of that size (the groups launch in parallel under xdist)."""
+    return int(str(group).rstrip("s"))
+
+
+def _port_results(group):
     cases = [(name, f(), s, kw, env)
-             for name, (w, f, s, kw, env) in CASES.items() if w == world]
-    return launch.spawn(torch_rank_cases.sharded_cases, world, args=(cases,),
-                        device="cpu")
+             for name, (g, f, s, kw, env) in CASES.items() if g == group]
+    return launch.spawn(torch_rank_cases.sharded_cases, _world(group),
+                        args=(cases,), device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -104,12 +178,12 @@ def port(tmp_path_factory):
 
     class Results(dict):
         def __missing__(self, name):
-            world = CASES[name][0]
-            if world not in cache:
-                cache[world] = torch_rank_cases.shared_result(
-                    tmp_path_factory, f"torch_sharded_{world}",
-                    lambda: _port_results(world))
-            return cache[world][name]
+            group = CASES[name][0]
+            if group not in cache:
+                cache[group] = torch_rank_cases.shared_result(
+                    tmp_path_factory, f"torch_sharded_{group}",
+                    lambda: _port_results(group))
+            return cache[group][name]
 
     return Results()
 
@@ -119,7 +193,7 @@ def _jax_table(name):
     t = f()
     if t.shape[0] == 0:
         return set(), None
-    table = jallatonce.discover(t, support, **_jax_kwargs(kwargs))
+    table = TWINS[kwargs.get("strategy", 0)](t, support, **_jax_kwargs(kwargs))
     return (table.to_rows(),
             jintegrity.digest_hex(*jintegrity.digest_table(table)))
 
@@ -140,7 +214,7 @@ def test_discover_sharded_equals_jax(port, case):
     assert got["rows"] == rows
     if rows:
         assert got["digest"] == digest
-    if case != "empty":
+    if not case.endswith("empty"):
         assert got["stats"]["dist_backend"] == "gloo"
         assert got["stats"]["staged"] == 0
 
@@ -158,6 +232,86 @@ def test_skew_cases_really_split(port):
     assert port["hot_giant_split"]["stats"]["n_giant_lines"] >= 1
     assert port["range_slice_max_load"]["stats"]["n_giant_lines"] >= 1
     assert port["multipass_budget64"]["stats"]["n_pair_passes"] > 1
+
+
+@pytest.mark.parametrize("strategy", [1, 2, 3])
+def test_s123_plan_sketch_and_ledger_equal_jax(port, strategy):
+    """Strategies 1-3 at 4 ranks: the plan, skew, sketch, lattice and round
+    statistics and the ledger's bytes per site are JAX's discover_sharded_*
+    at 4 devices."""
+    _, f, support, kwargs, _ = CASES[f"s{strategy}stats4"]
+    stats = {}
+    JAX_SHARDED[strategy](f(), support, mesh=make_mesh(4), stats=stats,
+                          use_fis=kwargs["use_fis"])
+    got = port[f"s{strategy}stats4"]
+    assert {k: got["stats"].get(k) for k in S123_STATS} == \
+        {k: stats.get(k) for k in S123_STATS}
+    assert got["ledger"] == {k: v["bytes"]
+                             for k, v in stats["exchange_sites"].items()}
+    assert got["stats"]["n_giant_lines"] > 0
+    if strategy > 1:
+        assert got["stats"]["n_sketch_candidates"] > 0
+
+
+def test_half_approx_stats_equal_jax(port, monkeypatch):
+    """The half-approximate round of strategy 1 at 4 ranks: its ha_*
+    statistics and the sketch_allreduce site's bytes are JAX's."""
+    monkeypatch.setenv("RDFIND_SHARDED_HALF_APPROX", "1")
+    _, f, support, kwargs, _ = CASES["s1ha_stats4"]
+    stats = {}
+    jsharded.discover_sharded_s2l(f(), support, mesh=make_mesh(4),
+                                  stats=stats, use_fis=True)
+    got = port["s1ha_stats4"]
+    assert {k: got["stats"].get(k) for k in S123_STATS} == \
+        {k: stats.get(k) for k in S123_STATS}
+    assert got["ledger"] == {k: v["bytes"]
+                             for k, v in stats["exchange_sites"].items()}
+    assert got["stats"]["ha_cut_pairs"] > 0
+    assert got["stats"]["ha_build_rounds"] == 4  # one per lattice level
+
+
+@pytest.mark.parametrize("on,off", [("s1_ha", "s1_hot"),
+                                    ("s2_ha", "s2_hot"),
+                                    ("s1_ha_hier", "s1_hot")])
+def test_half_approx_is_bit_identical(port, on, off):
+    """The knob changes no output bit (strategies 1 and 2, flat and
+    hierarchical), while its cut really drops pairs."""
+    assert port[on]["rows"] == port[off]["rows"]
+    assert port[on]["digest"] == port[off]["digest"]
+    assert port[on]["stats"]["ha_cut_pairs"] > 0
+    assert "ha_cut_pairs" not in port[off]["stats"]
+    assert "sketch_allreduce" not in port[off]["ledger"]
+
+
+def test_hier_sketch_reduce_splits_dcn_bytes(port):
+    """At the (2, 2) factorization the hierarchical sketch reduce moves the
+    flat all-reduce's ICI bytes and half its DCN bytes (one pre-reduced table
+    per host crosses instead of one per rank: d=4, local=2, flat DCN =
+    d*(d-local)*B, hierarchical d*(hosts-1)*B)."""
+    hier = port["s1_ha_hier"]["ledger_split"]["sketch_allreduce"]
+    flat = port["s1_ha_flat2"]["ledger_split"]["sketch_allreduce"]
+    assert port["s1_ha_flat2"]["rows"] == port["s1_hot"]["rows"]
+    assert hier[0] == flat[0]
+    assert hier[1] * 2 == flat[1] > 0
+    assert port["s1_flat_hier"]["rows"] == port["s1_hot"]["rows"]
+
+
+@pytest.mark.parametrize("strategy,kind", [(1, "small_to_large"),
+                                           (2, "approximate"),
+                                           (3, "late_bb")])
+def test_exhausted_caps_fall_back_to_the_single_device_twin(port, strategy,
+                                                           kind):
+    got = port[f"s{strategy}_fallback"]
+    fell = [d for d in got["stats"]["degradations"]
+            if d.get("action") == "fallback"]
+    assert fell and fell[0]["strategy"] == kind
+    assert got["rows"]  # and equal to the twin: test_discover_sharded_...
+
+
+def test_s123_skew_cases_really_split(port):
+    assert port["s1_hot"]["stats"]["n_giant_lines"] >= 1
+    for s in (1, 2, 3):
+        assert port[f"s{s}_budget64"]["stats"]["n_pair_passes"] > 1
 
 
 def test_dryrun_twin_on_eight_ranks(port):

@@ -77,35 +77,52 @@ def _exchange_cases(mesh, data):
                 for x in v] for k, v in out.items()}
 
 
+# The statistics a case reports: the plan and skew of strategy 0's cases, the
+# sketch, lattice, round and half-approximate statistics of strategies 1-3.
+SUMMARY_STATS = (
+    "planned_caps", "n_giant_lines", "n_giant_pairs", "n_pair_passes",
+    "rebalance", "dist_backend", "staged", "n_captures", "n_sketch_candidates",
+    "sketch_plan", "n_round1_cinds", "n_round2_cinds", "n_cinds_11",
+    "n_proper_overlaps", "n_cinds_12", "n_cinds_21", "n_inferred_21",
+    "n_cinds_22", "pairs_11", "pairs_12", "pairs_21", "pairs_22",
+    "pairs_verify", "pairs_round1", "pairs_round2", "total_pairs",
+    "ha_cut_pairs", "ha_build_rounds", "ha_sketch_bits", "degradations")
+
+
 def _table_summary(table, stats):
     from rdfind_tpu_torch.obs import integrity
-    keep = ("planned_caps", "n_giant_lines", "n_giant_pairs",
-            "n_pair_passes", "rebalance", "dist_backend", "staged")
+    keep = SUMMARY_STATS
+    sites = stats.get("exchange_sites", {})
     return dict(rows=table.to_rows(),
                 digest=integrity.digest_hex(*integrity.digest_table(table)),
                 stats={k: stats[k] for k in keep if k in stats},
-                ledger={k: v["bytes"] for k, v in
-                        stats.get("exchange_sites", {}).items()})
+                ledger={k: v["bytes"] for k, v in sites.items()},
+                ledger_split={k: (v.get("ici_bytes"), v.get("dcn_bytes"))
+                              for k, v in sites.items()})
 
 
 def sharded_cases(mesh, cases):
-    """discover_sharded on each (name, triples, support, kwargs, env) case;
-    `env` is set around the case.  Returns {name: summary}."""
+    """The sharded strategy kwargs["strategy"] (default 0: discover_sharded)
+    on each (name, triples, support, kwargs, env) case; `env` is set around
+    the case.  Returns {name: summary}."""
     from rdfind_tpu_torch.models import sharded
     from rdfind_tpu_torch.ops import minimality
+    from rdfind_tpu_torch.runtime import faults
 
     out = {}
     for name, triples, support, kwargs, env in cases:
         kwargs = dict(kwargs)
         minimize = kwargs.pop("minimize", False)
+        discover = sharded.STRATEGIES[kwargs.pop("strategy", 0)]
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
             stats = {}
             if "skew" in kwargs:
                 kwargs["skew"] = sharded.SkewPolicy(**kwargs["skew"])
-            table = sharded.discover_sharded(triples, support, mesh=mesh,
-                                             stats=stats, **kwargs)
+            faults.reset()
+            table = discover(triples, support, mesh=mesh, stats=stats,
+                             **kwargs)
             out[name] = _table_summary(table, stats)
             if minimize:
                 out[name]["minimized"] = minimality.minimize_table_sharded(
@@ -117,6 +134,87 @@ def sharded_cases(mesh, cases):
                 else:
                     os.environ[k] = v
     return out
+
+
+def preshard_cases(mesh, triples, support):
+    """The preshard stages and the four strategies over this rank's block of
+    `triples` (the contiguous split a one-host sharded ingest makes).
+    Returns the results of every stage, host-side."""
+    from rdfind_tpu_torch.models import sharded
+
+    padded, n_valid, t_loc = sharded._shard_triples(triples, mesh.size)
+    block = torch.as_tensor(padded[mesh.rank * t_loc:(mesh.rank + 1) * t_loc])
+    g = (block, int(n_valid[mesh.rank]))
+    dup = np.concatenate([triples, triples[: len(triples) // 2]])
+    padded, n_valid, t_loc = sharded._shard_triples(dup, mesh.size)
+    dup_block = torch.as_tensor(
+        padded[mesh.rank * t_loc:(mesh.rank + 1) * t_loc])
+    d_block, d_n, d_total = sharded.dedupe_preshard(
+        dup_block, int(n_valid[mesh.rank]), mesh)
+    out = dict(
+        fcs=sharded.count_fcs_sharded(*g, support, mesh, include_binary=True),
+        fcs_unary=sharded.count_fcs_sharded(*g, support, mesh,
+                                            include_binary=False),
+        histogram=sharded.join_histogram_sharded(*g, "spo", mesh),
+        histogram_po=sharded.join_histogram_sharded(*g, "po", mesh),
+        rules=[np.asarray(c) for c in
+               sharded.mine_ars_sharded(*g, support, mesh)],
+        dedupe_total=d_total,
+        dedupe_rows=sharded._gather_rows(mesh, d_block, d_n),
+        dedupe_counts=_gather(mesh, np.asarray([d_n])).tolist(),
+        tables={})
+    for s, discover in sharded.STRATEGIES.items():
+        out["tables"][s] = discover(None, support, mesh=mesh, use_fis=True,
+                                    use_ars=True, preshard=g).to_rows()
+    return out if mesh.rank == 0 else None
+
+
+def multihost_ingest_cases(mesh, paths, support, strategies):
+    """One host of a multi-host launch: the sharded ingest of `paths` under
+    both interning modes, the strategies over the ranks' row blocks, their
+    CINDs decoded (a collective under partitioned interning) and every
+    dictionary value.  Returns this host's view for local rank 0."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.runtime import multihost_ingest as mi
+
+    out = {}
+    for mode in ("partitioned", "replicated"):
+        block, n_valid, d, total = mi.sharded_ingest(
+            paths, mesh, partition_dictionary=mode == "partitioned")
+        part = isinstance(d, mi.PartitionedDictionary)
+        rec = dict(total=total, size=len(d), partitioned=part,
+                   own=len(d.own_values) if part else len(d.values),
+                   offsets=d.offsets.tolist() if part else None, cinds={})
+        for s in strategies:
+            table = sharded.STRATEGIES[s](None, support, mesh=mesh,
+                                          preshard=(block, n_valid),
+                                          use_fis=True, use_ars=True)
+            view = d.resolve_table(table) if part else d
+            rec["cinds"][s] = sorted(c.pretty() for c in table.decoded(view))
+        view = d.resolve(np.arange(len(d))) if part else d
+        rec["values"] = [view.value(i) for i in range(len(d))]
+        out[mode] = rec
+    return out
+
+
+def launches_case(mesh, strategy, triples, support, kwargs):
+    """A sharded strategy with every kernel count set to 0 just before:
+    rank 0's rows and statistics, and every rank's K2 launches."""
+    from rdfind_tpu_torch.models import sharded
+    from rdfind_tpu_torch.ops import kernels
+    from rdfind_tpu_torch.parallel.mesh import host_gather
+
+    kernels.reset_contains_check()
+    kernels.reset_launches()
+    stats = {}
+    table = sharded.STRATEGIES[strategy](triples, support, mesh=mesh,
+                                         stats=stats, **kwargs)
+    k2 = host_gather(mesh, torch.tensor(
+        [kernels.LAUNCHES["packed_contains_matrix"]], dtype=torch.int64,
+        device=mesh.device))
+    if mesh.rank != 0:
+        return None
+    return dict(rows=table.to_rows(), stats=stats, k2_launches=k2.tolist())
 
 
 def hard_exit_first(mesh, attempt):
