@@ -49,7 +49,8 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    dictionaries, with seconds, MB/s and the engine's phase times;
 10. ``cli``: the CLI's default run on the N-Triples file (native ingest, its
    read+parse / intern / discover split), one with ``--explicit-threshold 64
-   --counters 1`` and one with ``--prefixes`` on a prefix file written here;
+   --counters 1`` and one with ``--prefixes`` on a prefix file written here
+   (with ``--use-fis``, which leaves the output as it is);
    each output file must equal the strategy-1 golden's CINDs decoded to the
    same terms, line for line;
 11. ``planes``: the runtime and observability planes through the CLI on that
@@ -59,8 +60,9 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    the span tree holds the stage spans, the exposition ``rdfind_*`` metrics,
    and the profiler trace one K1 device event per counted launch.  The same
    command again resumes both stages, byte for byte.  The CLI default with an
-   injected ``host_pull`` fault (one retry) and with a failed
-   ``checkpoint_write`` (rc 0, ``checkpoint-errors`` 1), output unchanged.
+   injected ``host_pull`` fault (one retry) and, with ``--use-fis``, a
+   failed ``checkpoint_write`` (rc 0, ``checkpoint-errors`` 1), output
+   unchanged.
    Strategy 2 under ``--profile-dir``: K2, P1 and P2 events equal to their
    launch counts; ``sketch.kernel_selfcheck``.  The CLI default with tracing,
    metrics and the certificate on, beside the plain ``cli`` row (the planes'
@@ -75,7 +77,7 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    the same batch at strategy 0 with ``--use-fis`` on a copy of that base.
    Strategies 2 and 3 on a 20,000-triple input in-process through
    ``driver.run`` (one bundle, full fallback, K2 launched).  The real-size
-   workload with ``--projection so`` and a 0.01 % batch (200 changes): the
+   workload with ``--projection so`` and a 0.005 % batch (100 changes): the
    incremental path with passes reused, byte-identical output, the
    certificate chained and the new bundle reloading with no degradation.  The
    same batch with ``--projection spo`` once, in a subprocess under a wall
@@ -114,14 +116,29 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    Each run's wall, host ms per stage, exchange bytes per site, idle share
    and peak memory per rank (``--only sharded_s123`` runs the build and this
    phase alone, with no result line);
-16. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
+16. ``fused_step``: ``allatonce.fused_step``, strategy 0's pair path as one
+   step with fixed shapes and no host sync, at 2^27 pair slots on both
+   workloads: its CINDs equal ``discover``'s (strategy 0, dense) and the
+   golden, with overflow 0; one capture (``capture_fused_step``) at the
+   headline's size replayed on the headline, on a second input of that size
+   with fewer valid rows, and at another support, each equal to the eager
+   step on the same input; a capture at 2^26 slots on the headline, whose
+   overflow equals the eager step's and the truncated pair count; ``entry()``
+   on the card.  Eager and replay walls (median of 5), the ``discover``
+   walls (dense and chunked) on the same input, peak device memory and the
+   device's idle share under the eager step and under a replay
+   (``--only fused_step`` runs the build and this phase alone, with no
+   result line);
+17. a ``kernels`` line, then the last line ``{"ok": true, "device": ...}``.
    The kernel phase also times an empty launch (``launch_floor``), the
    practical floor under the probes P1 and P2.
 
 To stay within its time, the script runs the unfiltered strategy-1 walk, the
 forced chunked backend and the half-approximate round once each (the main
-paths on the two filtered workloads take the median of 3), and caps the
-real-size ``spo`` delta, which does not finish, at SPO_CAP_S.
+paths on the two filtered workloads take the median of 3), caps the
+real-size ``spo`` delta, which does not finish, at SPO_CAP_S, runs the
+``--prefixes`` CLI and the ``checkpoint_write`` drill with the filter, and
+takes a 100-change batch on the real-size workload.
 
 Any mismatch raises, so the script exits non-zero without the last line.
 """
@@ -151,7 +168,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import rdfind_tpu_torch  # noqa: E402
-from rdfind_tpu_torch import conditions  # noqa: E402
+from rdfind_tpu_torch import conditions, entry  # noqa: E402
+from rdfind_tpu_torch.data import CindTable  # noqa: E402
 from rdfind_tpu_torch.dictionary import Dictionary, intern_triples  # noqa: E402
 from rdfind_tpu_torch.io import native, ntriples, reader  # noqa: E402
 from rdfind_tpu_torch.models import allatonce, approximate  # noqa: E402
@@ -754,6 +772,19 @@ def run_main_path(name, triples, support, device, strategy: int = 0,
     return row
 
 
+def union_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) intervals."""
+    busy_us, reach = 0.0, None
+    for lo, hi in sorted(spans):
+        if reach is None or lo > reach:
+            busy_us += hi - lo
+            reach = hi
+        elif hi > reach:
+            busy_us += hi - reach
+            reach = hi
+    return busy_us
+
+
 def profile_main_path(name, triples, support, device, strategy: int,
                       **kw) -> dict:
     """One more discover under torch.profiler (launches not counted): the
@@ -782,14 +813,7 @@ def profile_main_path(name, triples, support, device, strategy: int,
             key = e.name[:80]
             ms, calls = by_name.get(key, (0.0, 0))
             by_name[key] = (ms + e.time_range.elapsed_us() / 1e3, calls + 1)
-    busy_us, reach = 0.0, None
-    for lo, hi in sorted(spans):
-        if reach is None or lo > reach:
-            busy_us += hi - lo
-            reach = hi
-        elif hi > reach:
-            busy_us += hi - reach
-            reach = hi
+    busy_us = union_us(spans)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     row = dict(phase="profile", workload=name, strategy=strategy, options=kw,
                wall_ms=wall_ms,
@@ -957,8 +981,8 @@ def run_cli_phase(triples, paths, device) -> tuple:
         run_cli([nt, "--support", "10"], lines, "native"),
         run_cli([nt, "--support", "10", "--explicit-threshold", "64"], lines,
                 "native"),
-        run_cli([nt, "--support", "10", "--prefixes", paths["prefixes"]],
-                short, "python"),
+        run_cli([nt, "--support", "10", "--use-fis", "--prefixes",
+                 paths["prefixes"]], short, "python"),
     ]
     return rows, lines
 
@@ -1125,8 +1149,9 @@ def run_planes_phase(triples, paths, device, s1_lines, cli_row) -> list:
     if fault["counters"].get("stat-n_host_pull_retries") != "1":
         raise AssertionError(f"planes: host_pull retries "
                              f"{fault['counters'].get('stat-n_host_pull_retries')}")
+    # (with the filter: the same output, without the chunked walk's time)
     ck = plane_cli("checkpoint_write_fault", [nt, "--support", "10",
-                                              "--checkpoint-dir",
+                                              "--use-fis", "--checkpoint-dir",
                                               d["ckpt_fault"]],
                    s1_lines, RDFIND_FAULTS="checkpoint_write")
     if ck["counters"].get("checkpoint-errors") != "1":
@@ -1187,12 +1212,12 @@ def run_planes_phase(triples, paths, device, s1_lines, cli_row) -> list:
 # ---------------------------------------------------------------------------
 
 # Change batches (synth.grow_delta_batches, seed 4): 1 % of the headline is
-# 2,000 changes, 0.01 % of the real-size workload 200.
+# 2,000 changes, 0.005 % of the real-size workload 100.
 HEADLINE_DELTA_FRAC = 0.01
-REAL_SIZE_DELTA_FRAC = 0.0001
+REAL_SIZE_DELTA_FRAC = 0.00005
 SMALL_DELTA_TRIPLES = 20_000
 # Wall cap of the --projection spo delta run on the real-size workload.
-SPO_CAP_S = 30
+SPO_CAP_S = 10
 # Queries of the serve phase.
 N_HOLD_QUERIES = 1000
 N_REFERENCED_QUERIES = 200
@@ -1450,7 +1475,7 @@ def trace_stages(trace_dir) -> dict:
 
 
 def run_real_size_delta(triples, root) -> dict:
-    """The real-size workload with --projection so: base, a 0.01 % batch on
+    """The real-size workload with --projection so: base, a 0.005 % batch on
     the incremental path, the from-scratch run, the chain and the reload.
     Then the same batch with --projection spo, once, under SPO_CAP_S."""
     ins, dels = synth.grow_delta_batches(triples, REAL_SIZE_DELTA_FRAC, seed=4)
@@ -2325,6 +2350,220 @@ def run_sharded_s123_phase(data, paths, s0_lines, s1_lines) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The fused single-device step, eager and replayed from a CUDA graph.
+# ---------------------------------------------------------------------------
+
+# Pair slots of the step: the headline has 118,255,758 pairs of frequent
+# captures and dbpedia2m 79,284,596 (the port's prepare_join_lines), so 2^27
+# leaves no overflow on either; at 2^26 the headline truncates that many
+# minus 2^26.
+FUSED_PAIR_CAPACITY = 1 << 27
+FUSED_OVERFLOW_CAPACITY = 1 << 26
+FUSED_TOTAL_PAIRS = {"headline": 118_255_758, "dbpedia2m": 79_284_596}
+# The second input of the captured graph (fewer valid rows, padded to the
+# headline's size) and the other support it replays at.
+FUSED_SECOND_INPUT = (150_000, 43)
+FUSED_SECOND_SUPPORT = 20
+FUSED_REPS = 5
+# entry() on the port's generator (the release-stable
+# rdfind_tpu_torch.utils.synth.generate_triples(512, seed=7)), recorded from
+# the JAX package's fused_step on the same triples on the CPU
+# (tests/test_torch_fused_step.py holds both packages equal on it).
+GOLDEN_ENTRY = dict(n_cinds=3490, overflow=0)
+
+
+def fused_table(out) -> CindTable:
+    """The CIND rows of a fused_step output (its first n_cinds rows)."""
+    n = int(out[7])
+    cols = [o[:n].cpu().numpy().astype(np.int64) for o in out[:7]]
+    return CindTable(*cols)
+
+
+def same_step_output(label, got, want) -> None:
+    """Raise unless two fused_step outputs agree: n_cinds, overflow and the
+    first n_cinds rows of the seven columns."""
+    n = int(want[7])
+    if int(got[7]) != n or int(got[8]) != int(want[8]) or not all(
+            torch.equal(g[:n], w[:n]) for g, w in zip(got[:7], want[:7])):
+        raise AssertionError(f"{label}: {int(got[7])} CINDs, overflow "
+                             f"{int(got[8])}; the eager step gives {n}, "
+                             f"overflow {int(want[8])}")
+
+
+def wall_runs(fn, device, reps: int = FUSED_REPS) -> list:
+    """Host-clock seconds of `reps` calls, each to a synchronize."""
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def idle_share(fn, device) -> dict:
+    """One call under torch.profiler: wall ms, device busy ms (the union of
+    its kernel and copy intervals) and the idle share; None where the
+    profiler saw no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    busy_ms = union_us(spans) / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms if spans else None,
+                idle_share=1.0 - busy_ms / wall_ms if spans else None,
+                device_events=len(spans))
+
+
+def median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def run_fused_step_phase(data, device) -> list:
+    """fused_step eager against discover and the goldens on both workloads,
+    one captured graph replayed on three inputs, the overflow run, entry()."""
+    rows = []
+    eager = {}
+
+    def step(t, n_valid, support, capacity=FUSED_PAIR_CAPACITY):
+        return allatonce.fused_step(
+            t, torch.tensor(n_valid, device=device),
+            torch.tensor(support, device=device), pair_capacity=capacity)
+
+    for name, (triples, support) in data.items():
+        t = torch.as_tensor(triples, device=device)
+        n = t.shape[0]
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        out = step(t, n, support)
+        torch.cuda.synchronize(device)
+        peak = torch.cuda.max_memory_allocated(device) - base
+        table = fused_table(out)
+        want = check_run(f"fused_step {name}", table, {}, GOLDEN[name])
+        walls = wall_runs(lambda: step(t, n, support), device)
+        ref_walls = {}
+        for backend in ("matmul", "chunked"):
+            reps = 3 if backend == "matmul" else 1
+            got = None
+
+            def run():
+                nonlocal got
+                got = rdfind_tpu_torch.discover(
+                    triples, support, strategy=0, device=device,
+                    pair_backend=backend)
+            ref_walls[backend] = wall_runs(run, device, reps)
+            if (len(got), integrity.digest_hex(*integrity.digest_table(got))) \
+                    != (len(table), want["digest"]):
+                raise AssertionError(f"fused_step {name}: {len(table)} CINDs "
+                                     f"against discover's {len(got)} "
+                                     f"({backend})")
+            del got
+        if int(out[8]) != 0:
+            raise AssertionError(f"fused_step {name}: overflow {int(out[8])} "
+                                 f"at {FUSED_PAIR_CAPACITY} pair slots")
+        prof = idle_share(lambda: step(t, n, support), device)
+        eager[name] = out
+        rows.append(dict(
+            phase="fused_step", run=f"eager/{name}", n_triples=n,
+            min_support=support, pair_capacity=FUSED_PAIR_CAPACITY,
+            total_pairs=FUSED_TOTAL_PAIRS[name], n_cinds=len(table),
+            digest=want["digest"], overflow=int(out[8]),
+            equals_discover=True, golden_match=True, wall_s=median(walls),
+            wall_s_runs=walls, discover_dense_wall_s=median(ref_walls["matmul"]),
+            discover_dense_wall_s_runs=ref_walls["matmul"],
+            discover_chunked_wall_s=ref_walls["chunked"][0],
+            peak_mem_bytes=peak, profile=prof))
+        emit(rows[-1])
+        del out, t
+    del eager["dbpedia2m"]
+    torch.cuda.empty_cache()
+
+    # One capture at the headline's size, replayed on three inputs.
+    headline, support = data["headline"]
+    n_cap = headline.shape[0]
+    reserved = torch.cuda.memory_reserved(device)
+    t0 = time.perf_counter()
+    captured = allatonce.capture_fused_step(
+        n_cap, pair_capacity=FUSED_PAIR_CAPACITY, device=device)
+    torch.cuda.synchronize(device)
+    capture_s = time.perf_counter() - t0
+    # The warm-up's blocks go back to the card; the graph's pool stays.
+    torch.cuda.empty_cache()
+    graph_pool = torch.cuda.memory_reserved(device) - reserved
+    second = synth.generate_triples(FUSED_SECOND_INPUT[0],
+                                    seed=FUSED_SECOND_INPUT[1])
+    padded = torch.full((n_cap, 3), torch.iinfo(torch.int32).max,
+                        dtype=torch.int32, device=device)
+    padded[:second.shape[0]] = torch.as_tensor(second, device=device)
+    head_t = torch.as_tensor(headline, device=device)
+    replays = [
+        ("headline", headline, support, None, eager["headline"]),
+        ("second_input", padded, support, second.shape[0],
+         step(padded, second.shape[0], support)),
+        ("other_support", headline, FUSED_SECOND_SUPPORT, None,
+         step(head_t, n_cap, FUSED_SECOND_SUPPORT)),
+    ]
+    for label, t, sup, n_valid, want in replays:
+        got = captured(t, sup, n_valid)
+        same_step_output(f"replay {label}", got, want)
+        rows.append(dict(phase="fused_step", run=f"replay/{label}",
+                         n_valid=n_valid or n_cap, min_support=sup,
+                         n_cinds=int(got[7]), overflow=int(got[8]),
+                         equals_eager=True))
+        emit(rows[-1])
+        del got
+    del replays, want
+    walls = wall_runs(lambda: captured(headline, support), device)
+    prof = idle_share(lambda: captured(headline, support), device)
+    rows.append(dict(phase="fused_step", run="replay_wall/headline",
+                     capture_s=capture_s, wall_s=median(walls),
+                     wall_s_runs=walls, profile=prof,
+                     graph_pool_bytes=graph_pool))
+    emit(rows[-1])
+    del captured, eager
+    torch.cuda.empty_cache()
+
+    # Overflow: 2^26 slots on the headline, captured and eager.
+    want = step(head_t, n_cap, support, FUSED_OVERFLOW_CAPACITY)
+    expected = FUSED_TOTAL_PAIRS["headline"] - FUSED_OVERFLOW_CAPACITY
+    captured = allatonce.capture_fused_step(
+        n_cap, pair_capacity=FUSED_OVERFLOW_CAPACITY, device=device)
+    got = captured(headline, support)
+    same_step_output("overflow replay", got, want)
+    if int(want[8]) != expected:
+        raise AssertionError(f"fused_step overflow {int(want[8])}, expected "
+                             f"{expected}")
+    rows.append(dict(phase="fused_step", run="overflow/headline",
+                     pair_capacity=FUSED_OVERFLOW_CAPACITY,
+                     overflow=int(got[8]), n_cinds=int(got[7]),
+                     equals_eager=True))
+    emit(rows[-1])
+    del captured, got, want, head_t, padded
+    torch.cuda.empty_cache()
+
+    fn, args = entry.entry()
+    out = fn(*args)
+    got = dict(n_cinds=int(out[7]), overflow=int(out[8]))
+    if got != GOLDEN_ENTRY:
+        raise AssertionError(f"entry(): {got}, the JAX package gives "
+                             f"{GOLDEN_ENTRY}")
+    rows.append(dict(phase="fused_step", run="entry", **got,
+                     golden_match=True))
+    emit(rows[-1])
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -2352,6 +2591,10 @@ def main() -> int:
               .fused_cind_smem_bytes()))
 
     data = {name: (gen(), support) for name, gen, support in WORKLOADS}
+    if sys.argv[1:] == ["--only", "fused_step"]:
+        run_fused_step_phase(data, device)
+        emit({"partial": "fused_step", "ok": True})
+        return 0
     if sys.argv[1:] == ["--only", "sharded_s123"]:
         # A shorter run for working on the phase alone (no result line).
         headline, support = data["headline"]
@@ -2397,6 +2640,9 @@ def main() -> int:
     emit(dict(phase="sweep_check", workload=REAL_SIZE,
               launches_checked=len(p["launches"]), match=True))
     del p
+
+    # Strategy 0's pair path as one sync-free step, eager and from a graph.
+    run_fused_step_phase(data, device)
 
     # The CLI's default skips the frequent-condition filter: on the headline
     # triples that is ~20x the captures.  The filter only prunes captures that

@@ -16,8 +16,11 @@ use into ``build/``); the single-device CLI and the small programs of
 integrity planes, stage checkpoints, fault injection, the result collector,
 profiler traces, the run console); incremental delta discovery against a
 persisted bundle (``runtime/delta.py``) and the mmap'd CIND index with its
-serving process (``runtime/serving.py``, ``programs/serve.py``).  What
-remains is listed in ROADMAP.md.
+serving process (``runtime/serving.py``, ``programs/serve.py``); the
+fused single-device step (``models/allatonce.fused_step``, one program with
+no host sync, replayable as a CUDA graph) and the entry points of
+``entry.py``.  Every strategy also runs sharded over ``torch.distributed``
+ranks (``models/sharded.py``).  What remains is listed in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

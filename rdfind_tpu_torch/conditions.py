@@ -19,10 +19,18 @@ OBJECT = 4
 NUM_TYPE_BITS = 3
 TYPE_MASK = 7
 
+SUBJECT_PREDICATE = SUBJECT | PREDICATE
+SUBJECT_OBJECT = SUBJECT | OBJECT
+PREDICATE_OBJECT = PREDICATE | OBJECT
+
 _CODE_TO_CHAR = {SUBJECT: "s", PREDICATE: "p", OBJECT: "o"}
 
 # Field index (0=s, 1=p, 2=o) for each single-bit code.
 FIELD_INDEX = {SUBJECT: 0, PREDICATE: 1, OBJECT: 2}
+
+
+def merge(code1, code2):
+    return code1 | code2
 
 
 def primary(code):
@@ -35,6 +43,11 @@ def secondary(code):
     return (code >> NUM_TYPE_BITS) & TYPE_MASK
 
 
+def add_secondary(code):
+    """Set as secondary (projection) all fields that are not primary conditions."""
+    return (code & TYPE_MASK) | ((~code & TYPE_MASK) << NUM_TYPE_BITS)
+
+
 def lowest_bit(x):
     """Lowest set bit of x (0 if x == 0)."""
     return x & (-x)
@@ -43,6 +56,19 @@ def lowest_bit(x):
 def popcount3(x):
     """Number of set bits among the low 3 bits."""
     return (x & 1) + ((x >> 1) & 1) + ((x >> 2) & 1)
+
+
+def add_first_secondary(code):
+    """Use the lowest unused field as the projection."""
+    unused = TYPE_MASK ^ (code & TYPE_MASK)
+    return create(primary(code), secondary_condition=lowest_bit(unused))
+
+
+def add_second_secondary(code):
+    """Use the second-lowest unused field as the projection."""
+    unused = TYPE_MASK ^ (code & TYPE_MASK)
+    first = lowest_bit(unused)
+    return create(primary(code), secondary_condition=unused & ~first)
 
 
 def decode(code):
@@ -86,6 +112,24 @@ def second_subcapture(capture_code):
     """Unary capture code keeping only the second condition field (same projection)."""
     first = lowest_bit(capture_code & TYPE_MASK)
     return remove_primary(capture_code) | lowest_bit((capture_code & TYPE_MASK) & ~first)
+
+
+def is_valid_standard_capture(code):
+    """1-or-2 primary bits, exactly 1 secondary bit, disjoint, nothing above bit 5."""
+    prim = primary(code)
+    sec = secondary(code)
+    n_prim = popcount3(prim)
+    ok_prim = (n_prim >= 1) & (n_prim <= 2)
+    ok_sec = popcount3(sec) == 1
+    disjoint = (prim & sec) == 0
+    clean = (code & ~0x3F) == 0
+    return ok_prim & ok_sec & disjoint & clean
+
+
+# The 9 valid standard capture codes: 3 projections x 2 unary conditions (6 codes)
+# + 3 projections x 1 binary condition (3 codes).
+ALL_VALID_CAPTURE_CODES = tuple(c for c in range(64)
+                                if is_valid_standard_capture(c))
 
 
 def pretty(capture_code, value1, value2=None):

@@ -398,6 +398,12 @@ class IngestStream:
             offsets.ctypes.data_as(ctypes.c_void_p))
         return buf.tobytes()[:nbytes], offsets
 
+    def decoded_values(self):
+        """(values, lossless): the sorted distinct values, UTF-8-decoded per
+        value; pair with :func:`canonicalize` to build the Dictionary."""
+        raw, offsets = self.raw_values()
+        return _values_from_buffer(raw, offsets)
+
     def stats(self) -> dict:
         return _read_stats(self._lib, self._h)
 
@@ -461,9 +467,8 @@ def _ingest_parallel(paths, tabs, expect_quad, skip_comments, threads,
                 t0 = time.perf_counter()
                 ids = asm.finalize(remaps)
                 remap_ms = (time.perf_counter() - t0) * 1000.0
-            raw, offsets = stream.raw_values()
+            values, lossless = stream.decoded_values()
             st = stream.stats()
-        values, lossless = _values_from_buffer(raw, offsets)
         ids, dictionary = canonicalize(ids, values, lossless)
     if stats is not None:
         st["remap_ms"] += remap_ms  # the host-side block rewrite

@@ -228,6 +228,8 @@ def _discover_dense(triples, min_support: int, projections: str,
         return None
     metrics.struct_set(stats, "dense_plan", plan.describe())
     metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
+    metrics.struct_set(stats, "kernel_resolution",
+                       cooc.resolution_report(triples.device))
 
     with record_function("rdfind.membership"):
         m_t, dep_count, lens = _stage_membership(
@@ -558,3 +560,194 @@ def discover(triples, min_support: int, projections: str = "spo",
     return _discover_chunked(triples, min_support, projections,
                              use_frequent_condition_filter, use_ars,
                              clean_implied, pair_chunk_budget, stats)
+
+
+# ---------------------------------------------------------------------------
+# The fused single-device step: strategy 0's pair path with fixed shapes and
+# no host sync, the JAX package's ``fused_step``.  Every output's shape
+# depends only on the triples' row count and ``pair_capacity``; counts are
+# 0-d device tensors.  No stage here calls .item(), nonzero, unique,
+# bincount or a boolean-mask index, so the whole step can be captured once as
+# a CUDA graph and replayed for any n_valid and min_support.
+# ---------------------------------------------------------------------------
+
+_INT32_MAX = torch.iinfo(torch.int32).max
+
+
+def _fixed_candidates(triples, n_valid, min_support, *, projections: str,
+                      use_fc_filter: bool):
+    """Triples -> distinct join-line rows sorted by (value, capture) and the
+    capture table, at candidate-row capacity.
+
+    Returns (line_val, line_cap, n_rows, cap_code, cap_v1, cap_v2,
+    num_caps): rows [0, n_rows) and [0, num_caps) are valid, the rest
+    SENTINEL.
+    """
+    n = triples.shape[0]
+    valid_t = torch.arange(n, device=triples.device) < n_valid
+    freq = (frequency.triple_frequencies(triples, min_support, valid=valid_t)
+            if use_fc_filter
+            else frequency.no_filter(n, triples.device, valid=valid_t))
+    cands = emit_join_candidates(triples, freq, projections)
+    cap_cols, _, cap_id, num_caps = segments.padded_unique(
+        [cands.code, cands.v1, cands.v2], cands.valid)
+    cap_keyed = torch.where(cands.valid, cap_id.to(torch.int32),
+                            segments.SENTINEL)
+    line_cols, _, _, n_rows = segments.padded_unique(
+        [cands.join_val, cap_keyed], cands.valid)
+    return (line_cols[0], line_cols[1], n_rows, cap_cols[0], cap_cols[1],
+            cap_cols[2], num_caps)
+
+
+def _fixed_capture_filter(line_val, line_cap, n_rows, min_support):
+    """Exact capture support + frequent-capture pruning over a valid prefix.
+
+    dep_count[c] = distinct join values containing capture c, over an
+    n-sized segment space.  The rows of frequent captures move to the front
+    in order.  Returns (line_val, line_cap, n_keep, dep_count).
+    """
+    n = line_val.shape[0]
+    valid = torch.arange(n, device=line_val.device) < n_rows
+    caps = torch.where(valid, line_cap, 0).to(torch.int64)
+    dep_count = segments.segment_sum(valid, caps, n)
+    keep = valid & (dep_count[caps] >= min_support)
+    (out_val, out_cap), n_keep = segments.padded_compact([line_val, line_cap],
+                                                         keep)
+    return out_val, out_cap, n_keep, dep_count
+
+
+def _fixed_merge(key, cnt, n_pairs, min_support, dep_count, cap_code, cap_v1,
+                 cap_v2):
+    """``_stage_merge`` with fixed shapes: sum the pair counts of equal
+    (dep << 32) | ref keys among the first n_pairs, apply the CIND test and
+    drop trivially implied pairs (the equal-code quirk kept).
+
+    Returns (dep_id, ref_id, support, n_cinds), the CIND rows compacted to
+    the front in (dep, ref) order.
+    """
+    m = key.shape[0]
+    dev = key.device
+    valid = torch.arange(m, device=dev) < n_pairs
+    ks, perm = torch.sort(torch.where(valid, key, _KEY_SENTINEL))
+    vs = ks != _KEY_SENTINEL
+    cs = torch.where(vs, cnt[perm].to(torch.int64), 0)
+    starts = segments.run_starts([ks]) & vs
+    gid = torch.clamp(torch.cumsum(starts, 0) - 1, min=0)
+    cooc_cnt = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
+        0, gid, cs)[gid]
+    nc = cap_code.shape[0]
+    d = torch.clamp(ks >> 32, 0, nc - 1)
+    r = torch.clamp(ks & 0xFFFFFFFF, 0, nc - 1)
+    support = dep_count[d]  # as long as the capture table: the row capacity
+    is_cind = (cooc_cnt == support) & (support >= min_support)
+    d_code, r_code = cap_code[d], cap_code[r]
+    implied = cc.is_subcode(r_code, d_code) & torch.where(
+        cc.first_subcapture(d_code) == r_code, cap_v1[r] == cap_v1[d],
+        cap_v1[r] == cap_v2[d])
+    keep = starts & is_cind & ~implied
+    (d_out, r_out, s_out), n_out = segments.padded_compact([d, r, support],
+                                                           keep)
+    return d_out, r_out, s_out, n_out
+
+
+def fused_step(triples, n_valid, min_support, *, projections: str = "spo",
+               use_fc_filter: bool = True, pair_capacity: int = 1 << 18):
+    """The whole single-device discovery step as one program with no host
+    sync: frequent-condition filter, emission, interning, the capture
+    filter, every co-occurrence pair up to ``pair_capacity`` slots, their
+    counts, the CIND test.  No AR filter, no minimality.
+
+    ``triples``: (N, 3) int32 tensor whose first ``n_valid`` rows are real
+    (pad the rest with int32 max); ``n_valid`` and ``min_support`` are 0-d
+    tensors on its device (Python ints work too, outside a graph capture).
+    ``overflow`` counts the pairs past ``pair_capacity`` (their counts are
+    missing: retry with a larger capacity or run ``discover``).
+
+    Returns (dep_code, dep_v1, dep_v2, ref_code, ref_v1, ref_v2, support,
+    n_cinds, overflow): the CIND rows compacted to the front of
+    ``pair_capacity``-sized int32 tensors (rows past n_cinds repeat clipped
+    captures), n_cinds and overflow 0-d int64 tensors.
+    """
+    dev = triples.device
+    n_valid = torch.as_tensor(n_valid, device=dev)
+    min_support = torch.as_tensor(min_support, device=dev)
+    (line_val, line_cap, n_rows, cap_code, cap_v1, cap_v2,
+     _) = _fixed_candidates(triples, n_valid, min_support,
+                            projections=projections,
+                            use_fc_filter=use_fc_filter)
+    line_val, line_cap, n_keep, dep_count = _fixed_capture_filter(
+        line_val, line_cap, n_rows, min_support)
+    pos, length, start_idx, total_pairs = pairs.padded_line_layout(line_val,
+                                                                   n_keep)
+    overflow = torch.clamp(total_pairs - pair_capacity, min=0)
+    key, cnt, n_pairs = _stage_pair_counts(line_cap, pos, length, start_idx,
+                                           capacity=pair_capacity)
+    d_out, r_out, s_out, n_out = _fixed_merge(
+        key, cnt, n_pairs, min_support, dep_count, cap_code, cap_v1, cap_v2)
+    return (cap_code[d_out], cap_v1[d_out], cap_v2[d_out],
+            cap_code[r_out], cap_v1[r_out], cap_v2[r_out],
+            s_out, n_out, overflow)
+
+
+class CapturedStep:
+    """``fused_step`` captured once as a CUDA graph over static input
+    buffers; calling it copies new inputs in, replays the graph and returns
+    clones of the nine outputs.  Built by ``capture_fused_step``."""
+
+    def __init__(self, graph, triples, n_valid, min_support, outputs):
+        self.graph = graph
+        self.n_capacity = triples.shape[0]
+        self._triples, self._n_valid = triples, n_valid
+        self._min_support, self._outputs = min_support, outputs
+
+    def __call__(self, triples, min_support, n_valid=None):
+        """Run the step on `triples` (an (n, 3) array or tensor with
+        n <= n_capacity; rows past n_valid, default n, are padding) at
+        `min_support`.  Both counts may be ints or 0-d tensors."""
+        t = triples_on(triples, self._triples.device)
+        n = t.shape[0]
+        if n > self.n_capacity:
+            raise ValueError(f"{n} triples exceed the captured capacity "
+                             f"{self.n_capacity}")
+        self._triples[:n].copy_(t)
+        self._triples[n:].fill_(_INT32_MAX)
+        self._n_valid.copy_(torch.as_tensor(n if n_valid is None else n_valid))
+        self._min_support.copy_(torch.as_tensor(min_support))
+        self.graph.replay()
+        return tuple(o.clone() for o in self._outputs)
+
+
+def capture_fused_step(n_capacity: int, *, projections: str = "spo",
+                       use_fc_filter: bool = True,
+                       pair_capacity: int = 1 << 18,
+                       device=None) -> CapturedStep:
+    """Capture ``fused_step`` for `n_capacity` triple rows as one CUDA graph.
+
+    Warms the step up on a side stream, then captures it; a capture that
+    meets a host sync raises (there is no eager fallback).  Raises on a
+    device that is not CUDA.
+    """
+    dev = devices.resolve(device)
+    if dev.type != "cuda":
+        raise ValueError(f"capture_fused_step needs a CUDA device, not "
+                         f"{dev.type!r}: a CUDA graph replays on the card")
+    triples = torch.full((int(n_capacity), 3), _INT32_MAX, dtype=torch.int32,
+                         device=dev)
+    n_valid = torch.zeros((), dtype=torch.int64, device=dev)
+    min_support = torch.ones((), dtype=torch.int64, device=dev)
+
+    def step():
+        return fused_step(triples, n_valid, min_support,
+                          projections=projections,
+                          use_fc_filter=use_fc_filter,
+                          pair_capacity=pair_capacity)
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = step()
+    return CapturedStep(graph, triples, n_valid, min_support, outputs)

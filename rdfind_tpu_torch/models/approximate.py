@@ -175,6 +175,8 @@ def _dense_verify_counts(line_val_h, line_cap_h, num_caps, cand_dep, cand_ref,
         metrics.counter_add(stats, "total_pairs", tot)
         metrics.struct_set(stats, "dense_plan", plan.describe())
         metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
+        metrics.struct_set(stats, "kernel_resolution",
+                           cooc.resolution_report(device))
 
     # Mᵀ (captures x lines): a dep tile is a row slice, and both operands of
     # the product are contiguous along the lines.

@@ -1168,6 +1168,12 @@ class _Pipeline:
         if stats is not None:
             metrics.struct_set(stats, "planned_caps",
                                dict(self._planned_caps))
+            # The dtype and kernel modes of the sketch and containment stages
+            # (strategies 2 and 3), recorded on every sharded run as the JAX
+            # package does.
+            metrics.gauge_set(stats, "cooc_dtype", "int8")
+            metrics.struct_set(stats, "kernel_resolution",
+                               cooc_ops.resolution_report(self.mesh.device))
 
         if self._datastats_on and stats is not None:
             used = dict(freq=raw_f, exchange_a=raw_a,

@@ -338,6 +338,8 @@ def _prepare_dense(triples, min_support, projections, use_fc_filter, use_ars,
         n_captures=num_caps, total_pairs=0, max_line=int(lens_h.max()),
         pair_backend="matmul", dense_plan=plan.describe(),
         cooc_dtype=plan.dtype)
+    metrics.struct_set(stats, "kernel_resolution",
+                       cooc.resolution_report(triples.device))
     if stats is not None and datastats.enabled():
         allatonce.publish_datastats(stats, lens_h, dep_count)
     # Past the product only the per-level line statistics read Mᵀ.

@@ -114,7 +114,8 @@ class DensePlan:
 
     def describe(self) -> dict:
         return {
-            "policy": "tile", "dtype": self.dtype,
+            "policy": "tile", "dtype": self.dtype, "plane_bits": 8,
+            "fuse_verdict": True,
             "l_real": self.n_lines, "l_pad": self.l_pad,
             "c_real": self.num_caps, "c_pad": self.c_pad,
             "tile": self.tile, "n_tiles": self.n_tiles,
@@ -124,6 +125,20 @@ class DensePlan:
             "occupancy": round(self.real_flops / max(self.issued_flops, 1),
                                4),
         }
+
+
+def resolution_report(device) -> dict:
+    """The kernel-mode record (stats["kernel_resolution"], the JAX package's
+    keys) with the port's values: K1 and K2 take one route each, their
+    hand-written CUDA kernels on the card and their plain versions on the
+    CPU; int8 elements in 8-bit planes; the verdict fused into K1 and its
+    block-skip schedule always on; no Pallas emit pipeline, and none of the
+    JAX package's TPU kernel knobs is read."""
+    route = "cuda" if torch.device(device).type == "cuda" else "plain"
+    return {"cooc_dtype": "int8", "plane_bits": 8, "kernel_dtype": "int8",
+            "plane_elem": "int8", "emit_pipeline": False,
+            "fuse_verdict": True, "block_skip": True, "knobs": {},
+            "k1_route": route, "k2_route": route}
 
 
 def m_budget_bytes(device) -> int:

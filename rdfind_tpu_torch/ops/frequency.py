@@ -39,19 +39,32 @@ class TripleFrequency:
     binary_ar_implied: torch.Tensor  # (N, 3) bool
 
 
-def _condition_counts(triples):
-    """Per-row counts of each unary and each binary condition."""
-    valid = torch.ones(triples.shape[0], dtype=torch.bool, device=triples.device)
-    unary = [segments.masked_row_counts([triples[:, f]], valid) for f in range(3)]
-    binary = [segments.masked_row_counts([triples[:, a], triples[:, b]], valid)
-              for a, b in _FIELD_PAIRS]
+def _condition_counts(triples, valid=None):
+    """Per-row counts of each unary and each binary condition.  With a
+    `valid` mask, only valid rows count and invalid rows get 0, through the
+    fixed-shape segment count (no host sync)."""
+    if valid is None:
+        ones = torch.ones(triples.shape[0], dtype=torch.bool,
+                          device=triples.device)
+
+        def count(cols):
+            return segments.masked_row_counts(cols, ones)
+    else:
+        def count(cols):
+            return segments.masked_weighted_row_counts(cols, valid, valid)
+    unary = [count([triples[:, f]]) for f in range(3)]
+    binary = [count([triples[:, a], triples[:, b]]) for a, b in _FIELD_PAIRS]
     return unary, binary
 
 
-def triple_frequencies(triples, min_support: int,
-                       find_ar_implied: bool = False) -> TripleFrequency:
-    """Exact unary + binary condition frequencies, evaluated on the triples' own rows."""
-    unary_cnt, binary_cnt = _condition_counts(triples)
+def triple_frequencies(triples, min_support, find_ar_implied: bool = False,
+                       valid=None) -> TripleFrequency:
+    """Exact unary + binary condition frequencies, evaluated on the triples' own rows.
+
+    `valid` (bool per row, optional) masks padding rows, which count as 0;
+    then `min_support` may be a 0-d tensor and nothing syncs the host.
+    """
+    unary_cnt, binary_cnt = _condition_counts(triples, valid)
     unary_ok = torch.stack([c >= min_support for c in unary_cnt], dim=1)
     binary_ok = torch.stack([c >= min_support for c in binary_cnt], dim=1)
     if find_ar_implied:
@@ -67,9 +80,13 @@ def triple_frequencies(triples, min_support: int,
                            binary_ar_implied=ar)
 
 
-def no_filter(n: int, device) -> TripleFrequency:
-    """All-pass verdicts (the path without frequent-item-set pruning)."""
-    ok = torch.ones((n, 3), dtype=torch.bool, device=device)
+def no_filter(n: int, device, valid=None) -> TripleFrequency:
+    """All-pass verdicts (the path without frequent-item-set pruning); with
+    a `valid` mask, for the valid rows only."""
+    if valid is None:
+        ok = torch.ones((n, 3), dtype=torch.bool, device=device)
+    else:
+        ok = valid[:, None].expand(n, 3).clone()
     return TripleFrequency(ok, ok, torch.zeros_like(ok))
 
 

@@ -168,7 +168,6 @@ def padded_unique(cols, valid):
     for c in sorted_cols:
         out = torch.full((n + 1,), SENTINEL, dtype=c.dtype, device=dev)
         out[target] = c
-        out[n] = SENTINEL
         out_cols.append(out[:n])
     out_valid = torch.arange(n, device=dev) < n_unique
     return out_cols, out_valid, inverse, n_unique

@@ -46,6 +46,13 @@ from ..ops import hashing, segments
 SENTINEL = segments.SENTINEL
 
 
+def exchange_volume_bytes(num_dev: int, capacity: int, lanes: int) -> int:
+    """Global wire bytes of one fixed-shape collective at a site: every lane
+    is a (D, capacity) int32 buffer per rank, moved whole however many rows
+    are valid, so D ranks x D destination rows x capacity x 4 bytes a lane."""
+    return int(num_dev) * int(num_dev) * int(capacity) * int(lanes) * 4
+
+
 def exchange_split_bytes(num_dev: int, capacity: int, lanes: int, *,
                          hosts: int = 1, hier: bool = False,
                          dcn_capacity: int | None = None,

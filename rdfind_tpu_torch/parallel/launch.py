@@ -13,7 +13,9 @@ rank's exception text with the rank named (``RankFailed``).  A rank that raises
 ``faults.Preempted`` flushes its progress snapshots and exits 75; so does the
 collective watchdog's hard exit, which leaves no report.  When the rank that
 failed first was preempted, the parent raises ``Preempted``.  The rendezvous has a timeout, and a collective that never
-returns is bounded by the collective watchdog in the ranks.
+returns is bounded by the collective watchdog in the ranks.  A failed
+rendezvous is retried (``join_group``: RDFIND_INIT_RETRIES attempts, each on
+a fresh prefix of the store).
 
 ``supervise`` is the preemption supervisor of the JAX package's driver
 (``_run_supervised``), moved to the parent: it catches ``Preempted`` /
@@ -99,6 +101,69 @@ def _make_store(spec: LaunchSpec, rank: int, world: int):
     return dist.FileStore(os.path.join(spec.workdir, "store"), world)
 
 
+def init_retries() -> int:
+    """RDFIND_INIT_RETRIES: rendezvous attempts a rank makes (default 3)."""
+    try:
+        return max(1, int(os.environ.get("RDFIND_INIT_RETRIES", "3") or 3))
+    except ValueError:
+        return 3
+
+
+def join_group(store, rank: int, world: int, *, backend: str, timeout,
+               **kwargs) -> int:
+    """``init_process_group`` with bounded retry: RDFIND_INIT_RETRIES
+    attempts, the fault ladder's jittered backoff between them.  Returns the
+    retries used (0: the first attempt joined), published as the
+    ``distributed_init_retries`` gauge.  ``faults.Preempted`` and
+    ``FallbackRequired`` pass straight through.
+
+    Attempt k runs on its own ``PrefixStore`` ("init<k>"), so it never reads
+    the keys an earlier attempt left in the store.  The ranks agree on k
+    because an attempt ends, on every rank, with a store barrier that waits
+    up to `timeout` for every rank's "joined" key: a rank moves on to k + 1
+    only when its own join or that barrier raised, and when one rank fails
+    to join, every other rank's barrier times out in the same attempt.
+    """
+    import torch.distributed as dist
+
+    from ..obs import metrics
+    from ..runtime import faults
+
+    tries = init_retries()
+    last: Exception | None = None
+    for attempt in range(tries):
+        attempt_store = dist.PrefixStore(f"init{attempt}", store)
+        joined = False
+        try:
+            dist.init_process_group(backend=backend, store=attempt_store,
+                                    rank=rank, world_size=world,
+                                    timeout=timeout, **kwargs)
+            joined = True
+            attempt_store.set(f"joined{rank}", b"1")
+            attempt_store.wait([f"joined{r}" for r in range(world)], timeout)
+            metrics.gauge_set(None, "distributed_init_retries", attempt)
+            return attempt
+        except (faults.Preempted, faults.FallbackRequired):
+            raise
+        except Exception as e:  # noqa: BLE001 - any failed join is retried
+            last = e
+            if joined:
+                try:
+                    dist.destroy_process_group()
+                except Exception:
+                    pass
+            if attempt == tries - 1:
+                break
+            delay_ms = faults._backoff_ms(attempt)
+            print(f"rdfind: distributed init attempt {attempt + 1}/{tries} "
+                  f"failed ({e}); retrying after {delay_ms:.0f} ms",
+                  file=sys.stderr, flush=True)
+            time.sleep(delay_ms / 1e3)
+    metrics.gauge_set(None, "distributed_init_retries", tries - 1)
+    raise RuntimeError(
+        f"distributed init failed after {tries} attempts") from last
+
+
 def _rank_main(spec: LaunchSpec, local_rank: int) -> None:
     """Entry point of one spawned rank."""
     import torch
@@ -136,12 +201,11 @@ def _rank_main(spec: LaunchSpec, local_rank: int) -> None:
         if backend == "gloo" and not spec.coordinator:
             os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
         store = _make_store(spec, rank, world)
-        kwargs = dict(backend=backend, store=store, rank=rank,
-                      world_size=world,
+        kwargs = dict(backend=backend,
                       timeout=datetime.timedelta(seconds=spec.init_timeout_s))
         if backend == "nccl":
             kwargs["device_id"] = device
-        dist.init_process_group(**kwargs)
+        join_group(store, rank, world, **kwargs)
         initialized = True
         mesh = mesh_mod.Mesh(rank=rank, size=world, device=device,
                              backend=backend, staged=staged,

@@ -11,7 +11,9 @@ changed between numpy releases (2.0.2 and 2.3.5 give different draws for one
 seed).  ``zipf`` consumes only ``Generator.random``, whose stream numpy keeps
 stable, so a seed gives the same triples under every numpy release; hand the
 same array to both packages when comparing them.  The delta-batch helpers
-(``grow_delta_batches``, ``apply_delta``) are the JAX package's, copied.
+(``grow_delta_batches``, ``apply_delta``), the overlay
+``inject_cind_structure`` and the writers ``triples_to_tokens`` /
+``write_nt`` are the JAX package's, copied.
 """
 
 from __future__ import annotations
@@ -75,6 +77,41 @@ def generate_triples(n: int, seed: int = 0, n_predicates: int = 24,
     pred_ids = n_entities + pred
     obj_ids = np.where(is_uri, obj_uri, n_entities + n_predicates + obj_lit)
     return np.stack([subj_ids, pred_ids, obj_ids.astype(np.int32)], axis=1)
+
+
+def inject_cind_structure(triples: np.ndarray, n_rules: int = 32,
+                          ref_size: int = 150,
+                          dep_size: int = 120) -> np.ndarray:
+    """Append a structured overlay that plants genuine high-support CINDs.
+
+    Independent draws cannot sustain exact containment at high support (more
+    triples per capture means more distinct values), while real RDF has
+    structural inclusions (every <x a :Professor> is also <x a :Person>).
+    For each of ``n_rules`` fresh predicate pairs (a, b), ``ref_size`` fresh
+    subjects get (s, b, o_s) and the first ``dep_size`` of them also get
+    (s, a, o'_s), so s[p=a] < s[p=b] holds with support ``dep_size``; every
+    odd rule shares one object on the referenced side, which plants 1/2
+    CINDs too.  Fresh id ranges leave the base distribution alone.
+    """
+    base = int(triples.max()) + 1 if triples.size else 0
+    rows = []
+    for k in range(n_rules):
+        subj = base + np.arange(ref_size, dtype=np.int64)
+        pred_a = base + ref_size + 2 * k
+        pred_b = pred_a + 1
+        obj_b = base + ref_size + 2 * n_rules + np.arange(ref_size)
+        obj_a = obj_b + ref_size  # distinct object pool per side
+        if k % 2 == 0:
+            rows.append(np.stack([subj, np.full(ref_size, pred_b), obj_b], 1))
+        else:
+            hub = obj_b[0]
+            rows.append(np.stack([subj, np.full(ref_size, pred_b),
+                                  np.full(ref_size, hub)], 1))
+        rows.append(np.stack([subj[:dep_size], np.full(dep_size, pred_a),
+                              obj_a[:dep_size]], 1))
+        base = int(max(obj_a.max(), pred_b)) + 1
+    overlay = np.concatenate(rows).astype(np.int32)
+    return np.concatenate([np.asarray(triples, np.int32), overlay])
 
 
 def generate_planted_cinds(n_rules: int, support: int, *,
@@ -231,6 +268,23 @@ def generate_dbpedia_shaped(n: int, seed: int = 0) -> np.ndarray:
     obj_ids = np.where(is_uri, obj_uri,
                        n_subj + n_pred + obj_lit)
     return np.stack([subj_ids, pred_ids, obj_ids.astype(np.int32)], axis=1)
+
+
+def triples_to_tokens(triples: np.ndarray) -> list[tuple[str, str, str]]:
+    """Integer id triples -> the `<v%09d>` URI tokens the .nt writers emit.
+
+    Zero-padded, so the tokens' lexicographic order is the ids' numeric
+    order: a run that interns the file ranks the tokens as the generator
+    ranked the ids."""
+    return [tuple(f"<v{int(v):09d}>" for v in row)
+            for row in np.asarray(triples).reshape(-1, 3)]
+
+
+def write_nt(path, triples: np.ndarray) -> None:
+    """Write integer id triples as an .nt file (one line per row)."""
+    with open(path, "w") as f:
+        for s, p, o in triples_to_tokens(triples):
+            f.write(f"{s} {p} {o} .\n")
 
 
 def grow_delta_batches(triples: np.ndarray, frac: float, seed: int = 0):

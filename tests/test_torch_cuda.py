@@ -684,3 +684,23 @@ def test_sharded_ingest_dop2_on_the_card(cuda, tmp_path):
     assert want.count(b"\n") > 0
     assert (tmp_path / "two.txt").read_bytes() == want
     assert "stat-world_size: 2" in err and "stat-staged: 1" in err
+
+
+def test_captured_fused_step_replays_equal_eager(cuda):
+    """capture_fused_step at entry()'s size: one CUDA graph, replayed on the
+    entry input, on fewer valid rows and at another support, equals the eager
+    step on the same input each time."""
+    from rdfind_tpu_torch import entry
+
+    fn, (t, n_valid, support) = entry.entry(cuda)
+    step = allatonce.capture_fused_step(
+        t.shape[0], pair_capacity=entry.ENTRY_PAIR_CAPACITY, device=cuda)
+    for n, sup in ((512, 2), (400, 2), (512, 3)):
+        want = fn(t, torch.tensor(n, device=cuda),
+                  torch.tensor(sup, device=cuda))
+        got = step(t[:n], sup)
+        k = int(want[7])
+        assert k > 0 and int(got[7]) == k and int(got[8]) == int(want[8])
+        for g, w in zip(got[:7], want[:7]):
+            assert torch.equal(g[:k], w[:k])
+    assert int(fn(t, n_valid, support)[7]) == 3490

@@ -56,11 +56,10 @@ def nt_file(tmp_path_factory):
 
 
 # Registry keys one package exports and the other does not: the JAX package's
-# TPU kernel-mode records (the port's K1 has one mode), its watchdog record
-# (the collective watchdog is not ported), and the port's block-skip records
-# (its dense sweep always runs the block-skip schedule).
-JAX_ONLY = {"rdfind_kernel_resolution", "rdfind_plane_bits",
-            "rdfind_fuse_verdict", "rdfind_watchdog"}
+# TPU plane-width and fused-verdict gauges (the port's K1 has one mode, which
+# its kernel_resolution record states), its watchdog record, and the port's
+# block-skip records (its dense sweep always runs the block-skip schedule).
+JAX_ONLY = {"rdfind_plane_bits", "rdfind_fuse_verdict", "rdfind_watchdog"}
 PORT_ONLY = {"rdfind_n_blocks_skipped", "rdfind_datastats_block_skip"}
 # Deterministic counters that both packages export: equal values.
 DETERMINISTIC = ("n_triples", "n_captures", "n_lines", "n_line_rows",

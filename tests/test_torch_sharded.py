@@ -11,8 +11,9 @@ capacities, the skew, sketch, lattice, round and half-approximate statistics
 and the exchange ledger's bytes per site must equal the JAX package's
 ``discover_sharded*`` at 4 devices (strategy 0 also at 8).  The 8-rank group
 also runs the twin of the JAX package's ``__graft_entry__.dryrun_multichip``
-strategy-0 part, held against the port's oracle.  Tolerance: exact equality
-throughout.
+strategy-0 part, held against the port's oracle, and the rank side of the
+port's own ``entry.dryrun_multichip``, checked by ``entry.check_dryrun``.
+Tolerance: exact equality throughout.
 """
 
 import jax
@@ -27,6 +28,7 @@ from rdfind_tpu.models import sharded as jsharded
 from rdfind_tpu.models import small_to_large as jsmall_to_large
 from rdfind_tpu.obs import integrity as jintegrity
 from rdfind_tpu.parallel.mesh import make_mesh
+from rdfind_tpu_torch import entry
 from rdfind_tpu_torch import oracle as toracle
 from rdfind_tpu_torch.parallel import launch
 from rdfind_tpu_torch.utils import synth
@@ -102,6 +104,8 @@ CASES = {
     "multipass_budget64": (4, _small, 2, {}, BUDGET64),
     "stats4": (4, _hot, 2, dict(use_fis=True), {}),
     "dryrun_twin": (8, _hot, 2, dict(minimize=True), BUDGET64),
+    # entry.dryrun_multichip's rank side: its five checks in this launch.
+    "dryrun_multichip": (8, _hot, 2, dict(dryrun=True), {}),
     "stats8": (8, _hot, 2, dict(use_fis=True), {}),
     # Strategies 1-3 (SmallToLarge, Approximate, LateBB).
     "s1_projection_so": ("2s", _plain, 3, _s(1, projections="so"), {}),
@@ -207,7 +211,7 @@ def _jax_stats(world):
             {k: v["bytes"] for k, v in stats["exchange_sites"].items()})
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"dryrun_multichip"}))
 def test_discover_sharded_equals_jax(port, case):
     rows, digest = _jax_table(case)
     got = port[case]
@@ -326,6 +330,22 @@ def test_dryrun_twin_on_eight_ranks(port):
                 [tuple(int(x) for x in row) for row in t], 2)}
     assert got["rows"] == want
     assert got["minimized"] == toracle.minimize_cinds(got["rows"])
+
+
+def test_dryrun_multichip_on_eight_ranks(port):
+    """The port's entry.dryrun_multichip on the eight-rank group: its checks
+    (strategy 0 in several passes and Approximate against the definitional
+    oracle, sharded minimality against its minimal set, SmallToLarge with the
+    distributed filter and LateBB against their single-device runs), and
+    each table equal to the JAX package's single-device twin."""
+    t = _hot()
+    got = port["dryrun_multichip"]
+    entry.check_dryrun(t, got)
+    np.testing.assert_array_equal(t, entry.dryrun_triples())
+    assert got["allatonce"] == got["approx"] == port["dryrun_twin"]["rows"]
+    assert got["minimized"] == port["dryrun_twin"]["minimized"]
+    assert got["s2l"] == jsmall_to_large.discover(t, 2).to_rows()
+    assert got["late_bb"] == jlate_bb.discover(t, 2).to_rows()
 
 
 def test_minimize_table_sharded_equals_oracle(port):

@@ -104,7 +104,8 @@ def _table_summary(table, stats):
 def sharded_cases(mesh, cases):
     """The sharded strategy kwargs["strategy"] (default 0: discover_sharded)
     on each (name, triples, support, kwargs, env) case; `env` is set around
-    the case.  Returns {name: summary}."""
+    the case.  A case with kwargs {"dryrun": True} runs
+    ``entry.dryrun_rank`` instead.  Returns {name: summary}."""
     from rdfind_tpu_torch.models import sharded
     from rdfind_tpu_torch.ops import minimality
     from rdfind_tpu_torch.runtime import faults
@@ -112,6 +113,12 @@ def sharded_cases(mesh, cases):
     out = {}
     for name, triples, support, kwargs, env in cases:
         kwargs = dict(kwargs)
+        if kwargs.pop("dryrun", False):
+            # entry.dryrun_multichip's rank side (its own strategies and
+            # support).
+            from rdfind_tpu_torch import entry
+            out[name] = entry.dryrun_rank(mesh, triples)
+            continue
         minimize = kwargs.pop("minimize", False)
         discover = sharded.STRATEGIES[kwargs.pop("strategy", 0)]
         saved = {k: os.environ.get(k) for k in env}
