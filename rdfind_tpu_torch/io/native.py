@@ -49,7 +49,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-from torch.profiler import record_function
 
 from ..dictionary import Dictionary
 from ..obs import metrics, tracer
@@ -552,7 +551,7 @@ def ingest_files(paths, tabs: bool = False, expect_quad: bool = False,
         raise NativeIngestError(f"native ingest unavailable: {_lib_error}")
     paths = list(paths)
     n_threads = ingest_threads(threads)
-    with record_function("rdfind.ingest"):
+    with tracer.profile_range("rdfind.ingest"):
         if n_threads <= 1:
             return _ingest_serial(paths, tabs, expect_quad, skip_comments,
                                   stats)

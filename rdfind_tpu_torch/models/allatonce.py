@@ -25,11 +25,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import devices
 from ..data import CindTable
-from ..obs import datastats, integrity, metrics
+from ..obs import datastats, integrity, metrics, tracer
 from .. import conditions as cc
 from ..ops import cooc, frequency, minimality, pairs, segments
 from ..ops.emission import emit_join_candidates
@@ -58,12 +57,15 @@ def _emit_and_intern(triples, min_support: int, *, projections: str,
     and each candidate row's capture id (-1 on invalid rows).
     """
     n = triples.shape[0]
-    freq = (frequency.triple_frequencies(triples, min_support,
-                                         find_ar_implied=use_ars)
-            if use_fc_filter else frequency.no_filter(n, triples.device))
-    cands = emit_join_candidates(triples, freq, projections)
-    cap_cols, cap_id, num_caps = segments.masked_unique(
-        [cands.code, cands.v1, cands.v2], cands.valid)
+    with tracer.profile_range("rdfind.prepare.filter"):
+        freq = (frequency.triple_frequencies(triples, min_support,
+                                             find_ar_implied=use_ars)
+                if use_fc_filter else frequency.no_filter(n, triples.device))
+    with tracer.profile_range("rdfind.prepare.emit"):
+        cands = emit_join_candidates(triples, freq, projections)
+    with tracer.profile_range("rdfind.prepare.intern"):
+        cap_cols, cap_id, num_caps = segments.masked_unique(
+            [cands.code, cands.v1, cands.v2], cands.valid)
     return cands, cap_cols, cap_id, num_caps
 
 
@@ -79,7 +81,9 @@ def _stage_prepare(triples, min_support: int, *, projections: str,
     cands, cap_cols, cap_id, num_caps = _emit_and_intern(
         triples, min_support, projections=projections,
         use_fc_filter=use_fc_filter, use_ars=use_ars)
-    line_gid, n_lines = segments.masked_dense_ids(cands.join_val, cands.valid)
+    with tracer.profile_range("rdfind.prepare.lines"):
+        line_gid, n_lines = segments.masked_dense_ids(cands.join_val,
+                                                      cands.valid)
     return (line_gid, cap_id, cands.valid, n_lines,
             cap_cols[0], cap_cols[1], cap_cols[2], num_caps)
 
@@ -91,8 +95,9 @@ def _stage_candidates(triples, min_support: int, *, projections: str,
     cands, cap_cols, cap_id, num_caps = _emit_and_intern(
         triples, min_support, projections=projections,
         use_fc_filter=use_fc_filter, use_ars=use_ars)
-    line_cols, _, _ = segments.masked_unique([cands.join_val, cap_id],
-                                             cands.valid)
+    with tracer.profile_range("rdfind.prepare.lines"):
+        line_cols, _, _ = segments.masked_unique([cands.join_val, cap_id],
+                                                 cands.valid)
     return (line_cols[0], line_cols[1], cap_cols[0], cap_cols[1],
             cap_cols[2], num_caps)
 
@@ -193,9 +198,10 @@ def _fit(arr, length: int):
 
 def triples_on(triples, device) -> torch.Tensor:
     """An (N, 3) numpy array or tensor of id triples as int32 on `device`."""
-    if not isinstance(triples, torch.Tensor):
-        triples = torch.as_tensor(np.asarray(triples, np.int32))
-    return triples.to(device=device, dtype=torch.int32)
+    with tracer.profile_range("rdfind.upload"):
+        if not isinstance(triples, torch.Tensor):
+            triples = torch.as_tensor(np.asarray(triples, np.int32))
+        return triples.to(device=device, dtype=torch.int32)
 
 
 def filter_ar_implied_cinds(table: CindTable, mined_rules) -> CindTable:
@@ -212,9 +218,9 @@ def _discover_dense(triples, min_support: int, projections: str,
                     use_fc_filter: bool, use_ars: bool, clean_implied: bool,
                     stats) -> CindTable | None:
     """The dense backend; None when Mᵀ does not fit the device budget."""
-    # Each stage is a named profiler range ("rdfind.<stage>"): a few
-    # microseconds when no profiler runs, the per-stage breakdown when one does.
-    with record_function("rdfind.prepare"):
+    # Each stage is a named profiler range ("rdfind.<stage>"): one flag check
+    # when no profiler runs, the per-stage breakdown when one does.
+    with tracer.profile_range("rdfind.prepare"):
         (line_gid, cap_id, cand_valid, n_lines, cap_code, cap_v1, cap_v2,
          num_caps) = _stage_prepare(triples, min_support,
                                     projections=projections,
@@ -223,50 +229,54 @@ def _discover_dense(triples, min_support: int, projections: str,
     n = triples.shape[0]
     if n_lines == 0 or num_caps == 0:
         return CindTable.empty()
-    plan = cooc.dense_plan(n_lines, num_caps, triples.device)
-    if plan is None:
-        return None
-    metrics.struct_set(stats, "dense_plan", plan.describe())
-    metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
-    metrics.struct_set(stats, "kernel_resolution",
-                       cooc.resolution_report(triples.device))
+    with tracer.profile_range("rdfind.plan"):
+        plan = cooc.dense_plan(n_lines, num_caps, triples.device)
+        if plan is None:
+            return None
+        metrics.struct_set(stats, "dense_plan", plan.describe())
+        metrics.gauge_set(stats, "cooc_dtype", plan.dtype)
+        metrics.struct_set(stats, "kernel_resolution",
+                           cooc.resolution_report(triples.device))
 
-    with record_function("rdfind.membership"):
+    with tracer.profile_range("rdfind.membership"):
         m_t, dep_count, lens = _stage_membership(
             line_gid, cap_id, cand_valid, min_support, l_pad=plan.l_pad,
             c_pad=plan.c_pad)
-    with record_function("rdfind.sweep"):
+    with tracer.profile_range("rdfind.sweep"):
         dep_id, ref_id, support = cooc.discover_pairs_dense(
             m_t, dep_count, _fit(cap_code, plan.c_pad),
             _fit(cap_v1, plan.c_pad), _fit(cap_v2, plan.c_pad), min_support,
             plan, stats=stats)
     del m_t
-    lens_h = lens[:n_lines].cpu().numpy().astype(np.int64)
-    code_h, v1_h, v2_h = (c.cpu().numpy() for c in (cap_code, cap_v1, cap_v2))
-    dep_count_h = dep_count[:num_caps].cpu().numpy().astype(np.int64)
+    with tracer.profile_range("rdfind.answer"):
+        lens_h = lens[:n_lines].cpu().numpy().astype(np.int64)
+        code_h, v1_h, v2_h = (c.cpu().numpy()
+                              for c in (cap_code, cap_v1, cap_v2))
+        dep_count_h = dep_count[:num_caps].cpu().numpy().astype(np.int64)
 
-    # Stat semantics of the JAX package's dense path: n_lines counts lines that
-    # kept >= 1 frequent capture, n_line_rows the distinct (value, capture) rows.
-    metrics.set_many(
-        stats, n_triples=n, n_frequent_rows=int(lens_h.sum()),
-        n_line_rows=int(dep_count_h.sum()),
-        n_lines=int((lens_h > 0).sum()), n_captures=num_caps,
-        total_pairs=int((lens_h * (lens_h - 1)).sum()),
-        max_line=int(lens_h.max()), pair_backend="matmul")
-    if stats is not None and datastats.enabled():
-        publish_datastats(stats, lens_h, dep_count_h)
-    if dep_id.size == 0:
-        return CindTable.empty()
-    table = CindTable(
-        dep_code=code_h[dep_id].astype(np.int64),
-        dep_v1=v1_h[dep_id].astype(np.int64),
-        dep_v2=v2_h[dep_id].astype(np.int64),
-        ref_code=code_h[ref_id].astype(np.int64),
-        ref_v1=v1_h[ref_id].astype(np.int64),
-        ref_v2=v2_h[ref_id].astype(np.int64),
-        support=support.astype(np.int64),
-    )
-    with record_function("rdfind.postprocess"):
+        # Stat semantics of the JAX package's dense path: n_lines counts
+        # lines that kept >= 1 frequent capture, n_line_rows the distinct
+        # (value, capture) rows.
+        metrics.set_many(
+            stats, n_triples=n, n_frequent_rows=int(lens_h.sum()),
+            n_line_rows=int(dep_count_h.sum()),
+            n_lines=int((lens_h > 0).sum()), n_captures=num_caps,
+            total_pairs=int((lens_h * (lens_h - 1)).sum()),
+            max_line=int(lens_h.max()), pair_backend="matmul")
+        if stats is not None and datastats.enabled():
+            publish_datastats(stats, lens_h, dep_count_h)
+        if dep_id.size == 0:
+            return CindTable.empty()
+        table = CindTable(
+            dep_code=code_h[dep_id].astype(np.int64),
+            dep_v1=v1_h[dep_id].astype(np.int64),
+            dep_v2=v2_h[dep_id].astype(np.int64),
+            ref_code=code_h[ref_id].astype(np.int64),
+            ref_v1=v1_h[ref_id].astype(np.int64),
+            ref_v2=v2_h[ref_id].astype(np.int64),
+            support=support.astype(np.int64),
+        )
+    with tracer.profile_range("rdfind.postprocess"):
         return _postprocess(table, triples, min_support, use_ars,
                             clean_implied, stats)
 
@@ -416,7 +426,7 @@ def iter_chunk_pairs(line_val_h, line_cap_h, budget: int, device, *,
             continue
         metrics.counter_add(stats, "n_pair_chunks")
         sl = slice(rs, re)
-        with record_function("rdfind.chunk"):
+        with tracer.profile_range("rdfind.chunk"):
             staged = dispatch.stage_to_host(_stage_pair_counts(
                 cap_d[sl], pos_d[sl], len_d[sl], start_d[sl] - rs,
                 capacity=capacity,
@@ -473,7 +483,7 @@ def _discover_chunked(triples, min_support: int, projections: str,
                       use_fc_filter: bool, use_ars: bool, clean_implied: bool,
                       pair_chunk_budget: int, stats) -> CindTable:
     """The chunked backend: phase A's join lines, the chunk loop, one merge."""
-    with record_function("rdfind.prepare"):
+    with tracer.profile_range("rdfind.prepare"):
         st = prepare_join_lines(triples, min_support, projections,
                                 use_fc_filter, use_ars, stats)
     if st is None:
@@ -486,12 +496,12 @@ def _discover_chunked(triples, min_support: int, projections: str,
         return CindTable.empty()
     metrics.gauge_set(stats, "pair_backend", "chunked")
     dev = triples.device
-    with record_function("rdfind.chunks"):
+    with tracer.profile_range("rdfind.chunks"):
         parts = list(iter_chunk_pairs(st["line_val_h"], st["line_cap_h"],
                                       pair_chunk_budget, dev, stats=stats))
     if not any(p[0].size for p in parts):
         return CindTable.empty()
-    with record_function("rdfind.merge"):
+    with tracer.profile_range("rdfind.merge"):
         cat = [torch.as_tensor(np.concatenate([p[k] for p in parts])).to(dev)
                for k in range(3)]
 
@@ -503,11 +513,12 @@ def _discover_chunked(triples, min_support: int, projections: str,
             col("cap_v1"), col("cap_v2")))
     if d.size == 0:
         return CindTable.empty()
-    code, v1, v2 = st["cap_code"], st["cap_v1"], st["cap_v2"]
-    table = CindTable(dep_code=code[d], dep_v1=v1[d], dep_v2=v2[d],
-                      ref_code=code[r], ref_v1=v1[r], ref_v2=v2[r],
-                      support=sup)
-    with record_function("rdfind.postprocess"):
+    with tracer.profile_range("rdfind.answer"):
+        code, v1, v2 = st["cap_code"], st["cap_v1"], st["cap_v2"]
+        table = CindTable(dep_code=code[d], dep_v1=v1[d], dep_v2=v2[d],
+                          ref_code=code[r], ref_v1=v1[r], ref_v2=v2[r],
+                          support=sup)
+    with tracer.profile_range("rdfind.postprocess"):
         return _postprocess(table, triples, min_support, use_ars,
                             clean_implied, stats)
 

@@ -31,11 +31,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import devices
 from ..data import CindTable
-from ..obs import metrics
+from ..obs import metrics, tracer
 from ..ops import cooc, kernels, sketch
 from . import allatonce, small_to_large
 
@@ -301,31 +300,31 @@ def discover(triples, min_support: int, projections: str = "spo",
     triples = allatonce.triples_on(triples, dev)
     min_support = max(int(min_support), 1)
     use_ars = use_association_rules and use_frequent_condition_filter
-    with record_function("rdfind.prepare"):
+    with tracer.profile_range("rdfind.prepare"):
         st = allatonce.prepare_join_lines(triples, min_support, projections,
                                           use_frequent_condition_filter,
                                           use_ars, stats)
     if st is None:
         return CindTable.empty()
-    with record_function("rdfind.sketch"):
+    with tracer.profile_range("rdfind.sketch"):
         sketches = _build_sketches(st["line_val_h"], st["line_cap_h"],
                                    st["num_caps"], bits=sketch_bits,
                                    num_hashes=sketch_hashes, device=dev)
     # Infrequent captures were row-filtered out of the join lines: their
     # sketches stay all-ones and they can be in no CIND on either side.
     frequent = st["dep_count"] >= min_support
-    with record_function("rdfind.candidates"):
+    with tracer.profile_range("rdfind.candidates"):
         cand_dep, cand_ref = _candidate_pairs(
             sketches, st["num_caps"], bits=sketch_bits,
             num_hashes=sketch_hashes, dep_mask=frequent, ref_mask=frequent)
     metrics.gauge_set(stats, "n_sketch_candidates", len(cand_dep))
     del sketches  # free the device memory before the membership of round 2
-    with record_function("rdfind.verify"):
+    with tracer.profile_range("rdfind.verify"):
         d, r, sup = verify_candidates(
             st, cand_dep, cand_ref, min_support, pair_backend=pair_backend,
             pair_chunk_budget=pair_chunk_budget, stats=stats,
             stat_key="pairs_verify", device=dev)
-    with record_function("rdfind.postprocess"):
+    with tracer.profile_range("rdfind.postprocess"):
         return allatonce._postprocess(table_of(st, d, r, sup), triples,
                                       min_support, use_ars, clean_implied,
                                       stats)

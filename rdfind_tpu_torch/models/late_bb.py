@@ -16,12 +16,11 @@ minimal set.  Association rules filter the final table only.
 from __future__ import annotations
 
 import numpy as np
-from torch.profiler import record_function
 
 from .. import conditions as cc
 from .. import devices
 from ..data import CindTable
-from ..obs import metrics
+from ..obs import metrics, tracer
 from ..ops import sketch
 from . import allatonce, approximate, small_to_large
 
@@ -47,27 +46,27 @@ def discover(triples, min_support: int, projections: str = "spo",
     triples = allatonce.triples_on(triples, dev)
     min_support = max(int(min_support), 1)
     use_ars = use_association_rules and use_frequent_condition_filter
-    with record_function("rdfind.prepare"):
+    with tracer.profile_range("rdfind.prepare"):
         st = allatonce.prepare_join_lines(triples, min_support, projections,
                                           use_frequent_condition_filter,
                                           use_ars, stats)
     if st is None:
         return CindTable.empty()
     cap_code, cap_v1, cap_v2 = st["cap_code"], st["cap_v1"], st["cap_v2"]
-    with record_function("rdfind.sketch"):
+    with tracer.profile_range("rdfind.sketch"):
         sketches = approximate._build_sketches(
             st["line_val_h"], st["line_cap_h"], st["num_caps"],
             bits=sketch_bits, num_hashes=sketch_hashes, device=dev)
     # One candidate pass for all frequent captures, split by dep arity after.
     frequent = st["dep_count"] >= min_support
-    with record_function("rdfind.candidates"):
+    with tracer.profile_range("rdfind.candidates"):
         cand_dep, cand_ref = approximate._candidate_pairs(
             sketches, st["num_caps"], bits=sketch_bits,
             num_hashes=sketch_hashes, dep_mask=frequent, ref_mask=frequent)
     del sketches
     dep_is_unary = np.asarray(cc.is_unary(cap_code))[cand_dep]
 
-    with record_function("rdfind.verify"):
+    with tracer.profile_range("rdfind.verify"):
         # Round 1: unary dependents, refs of both arities.
         c1_dep, c1_ref = cand_dep[dep_is_unary], cand_ref[dep_is_unary]
         d1, r1, sup1 = approximate.verify_candidates(
@@ -91,6 +90,6 @@ def discover(triples, min_support: int, projections: str = "spo",
     table = approximate.table_of(st, np.concatenate([d1, d2]),
                                  np.concatenate([r1, r2]),
                                  np.concatenate([sup1, sup2]))
-    with record_function("rdfind.postprocess"):
+    with tracer.profile_range("rdfind.postprocess"):
         return allatonce._postprocess(table, triples, min_support, use_ars,
                                       clean_implied, stats)

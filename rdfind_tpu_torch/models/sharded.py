@@ -60,7 +60,6 @@ import zlib
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import conditions as cc
 from ..data import CindTable
@@ -1195,7 +1194,7 @@ class _Pipeline:
         """One pipeline stage: a named profiler range ("rdfind.sharded.<name>")
         and its host milliseconds in stats["stage_host_ms"]."""
         t0 = time.perf_counter()
-        with record_function(f"rdfind.sharded.{name}"):
+        with tracer.profile_range(f"rdfind.sharded.{name}"):
             yield
         self.stage_ms[name] = (time.perf_counter() - t0) * 1e3
         if self.stats is not None:

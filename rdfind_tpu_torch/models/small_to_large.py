@@ -30,12 +30,11 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import conditions as cc
 from .. import devices
 from ..data import NO_VALUE, CindTable
-from ..obs import datastats, integrity, metrics
+from ..obs import datastats, integrity, metrics, tracer
 from ..ops import cooc, frequency, minimality, sketch
 from . import allatonce
 
@@ -117,11 +116,11 @@ def _chunked_cooc(line_val_h, line_cap_h, dep_ok, ref_ok, budget, stats,
     balanced=True halves the 1/1 emission (each unordered pair once) and
     symmetrises the merged counts; only valid when dep_ok == ref_ok.
     """
-    with record_function("rdfind.chunks"):
+    with tracer.profile_range("rdfind.chunks"):
         parts = list(_iter_chunk_pairs(line_val_h, line_cap_h, dep_ok, ref_ok,
                                        budget, stats, stat_key, device,
                                        balanced=balanced))
-    with record_function("rdfind.merge"):
+    with tracer.profile_range("rdfind.merge"):
         d, r, c = _merge_pair_parts(parts, device)
         if not balanced or d.size == 0:
             return d, r, c
@@ -197,7 +196,7 @@ def _half_approx_cooc_11(line_val_h, line_cap_h, dep_ok, ref_ok, budget,
         return _iter_chunk_pairs(line_val_h, line_cap_h, dep_flags, ref_ok,
                                  budget, stats, "pairs_11", device)
 
-    with record_function("rdfind.half_approx_round1"):
+    with tracer.profile_range("rdfind.half_approx_round1"):
         # A chunk's keys are distinct and ascending (dep-major).
         for d, r, c in chunks(dep_ok):
             key = (d << 32) | r
@@ -259,7 +258,7 @@ def _half_approx_cooc_11(line_val_h, line_cap_h, dep_ok, ref_ok, budget,
     d2 = r2_ = c2 = np.zeros(0, np.int64)
     if r2.any():
         parts = []
-        with record_function("rdfind.half_approx_round2"):
+        with tracer.profile_range("rdfind.half_approx_round2"):
             for d, r, c in chunks(r2 & dep_ok):
                 key = (d << 32) | r
                 # Explicit part + sketch part bound the total: below
@@ -271,7 +270,7 @@ def _half_approx_cooc_11(line_val_h, line_cap_h, dep_ok, ref_ok, budget,
                 n_r2_rows += int(keep.sum())
                 if keep.any():
                     parts.append((d[keep], r[keep], c[keep]))
-        with record_function("rdfind.merge"):
+        with tracer.profile_range("rdfind.merge"):
             d2, r2_, c2 = _merge_pair_parts(parts, device)
         k2 = c2 >= min_support
         d2, r2_, c2 = d2[k2], r2_[k2], c2[k2]
@@ -327,7 +326,7 @@ def _prepare_dense(triples, min_support, projections, use_fc_filter, use_ars,
     m_t, dep_count_d, lens = allatonce._stage_membership(
         line_gid, cap_id, valid, min_support, l_pad=plan.l_pad,
         c_pad=plan.c_pad)
-    with record_function("rdfind.cooc"):
+    with tracer.profile_range("rdfind.cooc"):
         cooc_m = cooc.cooc_dot(m_t, m_t)
     host = [t.cpu().numpy().astype(np.int64)
             for t in (code, v1, v2, dep_count_d[:num_caps], lens[:n_lines])]
@@ -489,7 +488,7 @@ def _run_lattice_dense(dc, cap_code, cap_v1, cap_v2, dep_count, num_caps,
             metrics.counter_add(stats, "total_pairs", n_pairs)
         return tuple(int(x) for x in flat[at:])
 
-    with record_function("rdfind.level11"):
+    with tracer.profile_range("rdfind.level11"):
         k, p, k_packed, n_prop = _lat11(cooc_m, support_d, u_freq_d, ms)
         stat_add("pairs_11", u_freq_d)
     cind11 = None
@@ -526,16 +525,16 @@ def _run_lattice_dense(dc, cap_code, cap_v1, cap_v2, dep_count, num_caps,
     code_b, v1_b, v2_b = (_up(a[bin_ids_h], dev)
                           for a in (cap_code, cap_v1, cap_v2))
 
-    with record_function("rdfind.level12"):
+    with tracer.profile_range("rdfind.level12"):
         cind12, cind12_packed, n_cand12, u12 = _lat12(
             k, cooc_m, support_d, ms, bin_ids, s1, s2, sub_ok)
         stat_add("pairs_12", u12, n_cand12)
-    with record_function("rdfind.level21"):
+    with tracer.profile_range("rdfind.level21"):
         rel_all, cind21_packed, n_inf, n_cand21, u21 = _lat21(
             k, p, cooc_m, support_d, ms, bin_ids, s1, s2, sub_ok)
         stat_add("pairs_21", u21, n_cand21)
         del p
-    with record_function("rdfind.level22"):
+    with tracer.profile_range("rdfind.level22"):
         cind22_packed, n_cand22, u22 = _lat22(
             rel_all, cind12, cooc_m, support_d, ms, bin_ids, s1, s2, sub_ok,
             code_b, v1_b, v2_b)
@@ -543,7 +542,7 @@ def _run_lattice_dense(dc, cap_code, cap_v1, cap_v2, dep_count, num_caps,
     del rel_all, cind12
     dc.m_t = None
 
-    with record_function("rdfind.decode"):
+    with tracer.profile_range("rdfind.decode"):
         # The deferred 1/1 and the three binary relations through one batched
         # decode; an oversized 1/1 relation strip-decodes on its own.
         relations = [(cind12_packed, num_caps, nb),
@@ -803,7 +802,7 @@ def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
 
     # --- 1/1: unary-unary overlaps.  Frequent overlaps only; the dep side is
     # frequent by the capture filter.
-    with record_function("rdfind.level11"):
+    with tracer.profile_range("rdfind.level11"):
         d11, r11, c11 = (cooc_fn_11 or cooc_fn)(unary, unary, "pairs_11")
     freq_ov = c11 >= min_support
     is_cind_11 = c11 == dep_count[d11]
@@ -828,7 +827,7 @@ def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
 
     # --- 1/2: x/2 candidates from 1/1 CINDs sharing a dep, plus the trivial
     # 1/1 merge d < r  =>  d < merge(d, r).
-    with record_function("rdfind.level12"):
+    with tracer.profile_range("rdfind.level12"):
         j12_dep, j12_ref = _merge_join(cind11_d, cind11_r, subs, device)
         dcode, rcode = cap_code[cind11_d], cap_code[cind11_r]
         refn = _mergeable(dcode, rcode)
@@ -845,7 +844,7 @@ def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
             cap_code, cap_v1, cap_v2, min_support, "pairs_12", device)
 
     # --- 2/1: pairs of proper overlaps sharing the ref.
-    with record_function("rdfind.level21"):
+    with tracer.profile_range("rdfind.level21"):
         ref21, dep21 = _merge_join(prop_r, prop_d, subs, device)
         c21_dep, c21_ref = unique_pairs(dep21, ref21)
         cind21_d, cind21_r, cind21_sup = _verify_level(
@@ -864,7 +863,7 @@ def _run_lattice(cooc_fn, cap_code, cap_v1, cap_v2, dep_count, num_caps,
 
     # --- 2/2: x/2 candidates from the 2/1 relation, plus the 2/1s whose ref
     # is a value-substituted subcapture of the dep.
-    with record_function("rdfind.level22"):
+    with tracer.profile_range("rdfind.level22"):
         j22_dep, j22_ref = _merge_join(all21_dep, all21_ref, subs, device)
         dcode, rcode = cap_code[all21_dep], cap_code[all21_ref]
         refn = np.asarray(cc.is_subcode(cc.primary(rcode), cc.primary(dcode))) \
@@ -956,7 +955,7 @@ def discover(triples, min_support: int, projections: str = "spo",
 
     dense = None
     if pair_backend != "chunked":
-        with record_function("rdfind.prepare"):
+        with tracer.profile_range("rdfind.prepare"):
             dense = _prepare_dense(triples, min_support, projections,
                                    use_frequent_condition_filter, use_ars,
                                    stats)
@@ -977,7 +976,7 @@ def discover(triples, min_support: int, projections: str = "spo",
         integrity.publish_output(stats, table)
         return table
 
-    with record_function("rdfind.prepare"):
+    with tracer.profile_range("rdfind.prepare"):
         st = allatonce.prepare_join_lines(triples, min_support, projections,
                                           use_frequent_condition_filter,
                                           use_ars, stats)

@@ -19,8 +19,9 @@
   datastats the data plane: join-line and capture-support histograms.
   forecast  cap-exhaustion advisories from per-pass utilization.
   integrity order-invariant content digests and the run certificate.
-  sentinel  the BENCH_HISTORY.jsonl perf series + the noise-aware regression
-            gate, and the provenance block of a certificate.
+  sentinel  the provenance block of a run certificate (the JAX package's
+            perf series and regression gate are not ported: the benchmark
+            under benchmark/ is the port's regression record).
   console   the live run console (loopback HTTP: /metrics, /status,
             /progress, /datastats, /integrity, /flightrec), grown by the
             serving process into the query plane (/query/*, /slo,

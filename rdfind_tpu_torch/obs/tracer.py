@@ -10,10 +10,17 @@ viewable in Perfetto (ui.perfetto.dev) or chrome://tracing.
 Timestamps are epoch microseconds (time.time_ns) — the only clock multiple
 hosts share — and the merge tool rebases them to the earliest event.
 
-Host/device alignment: when tracing is enabled each span also enters a
-``torch.profiler.record_function`` range of the same name, so a profiler trace
-(``--profile-dir``) carries the host span names on its timeline and the two
-traces line up.  torch is imported lazily and only when tracing is ON.
+Host/device alignment: when tracing is enabled and a profiler runs, each span
+also enters a ``torch.profiler`` range of the same name, so a profiler trace
+(``--profile-dir``) carries the host span names on its timeline.  The span's B
+stamp is read right after the range is entered (its E stamp right after the
+range is left), and the profiler's events carry epoch nanoseconds too, so a
+span's JSONL time and its range share one clock reading.
+
+Program ranges: ``profile_range(name)`` is the one way the port opens a named
+profiler range (the ``rdfind.*`` stages a benchmark trace reads).  It returns
+the shared no-op object unless a profiler runs, so a range costs one flag
+check when none does.  torch is imported lazily, at the first range.
 
 Disabled cost: ``span()`` returns a shared no-op context manager after one
 module-global check — the hot path pays a function call and a branch.
@@ -60,6 +67,16 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def profile_range(name: str):
+    """A ``torch.profiler`` range named `name` (a context manager) while a
+    profiler runs, else the shared no-op ``_NULL_SPAN``."""
+    import torch
+
+    if not torch._C._autograd._profiler_enabled():
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
+
+
 class _Span:
     """One open span: writes its E event (and pops the thread stack) on exit."""
 
@@ -79,7 +96,7 @@ class _Span:
                 self._annotation.__exit__(*exc)
             except Exception:
                 pass
-        self._tracer._close_span(self.name)
+        self._tracer._close_span(self.name, time.time_ns() // 1000)
         return False
 
 
@@ -105,14 +122,7 @@ class Tracer:
         self.n_mismatched = 0  # __exit__ order violations (bugs, not faults)
         self._status = {"stage": None, "pass": None}
         self._beat = heartbeat.Heartbeat(trace_dir, host_index=self.host_index)
-        # torch.profiler.record_function, resolved once (None without torch).
-        self._annotation_cls = None
-        if annotate:
-            try:
-                from torch.profiler import record_function
-                self._annotation_cls = record_function
-            except Exception:
-                self._annotation_cls = None
+        self._annotate = annotate  # spans open profiler ranges too
 
     # -- internals ----------------------------------------------------------
 
@@ -134,6 +144,14 @@ class Tracer:
         return threading.get_ident() & 0xFFFF
 
     def open_span(self, name: str, cat: str, args: dict):
+        annotation = None
+        if self._annotate:
+            try:
+                annotation = profile_range(name)
+                annotation.__enter__()
+            except Exception:
+                annotation = None
+        ts = time.time_ns() // 1000  # next to the range's own start
         stack = self._stack()
         stack.append(name)
         if cat == CAT_STAGE:
@@ -141,20 +159,13 @@ class Tracer:
             self._status["pass"] = None
         elif cat == CAT_PASS:
             self._status["pass"] = args.get("pass")
-        self._emit({"name": name, "cat": cat, "ph": "B",
-                    "ts": time.time_ns() // 1000, "pid": self.host_index,
-                    "tid": self._tid(), "args": args})
+        self._emit({"name": name, "cat": cat, "ph": "B", "ts": ts,
+                    "pid": self.host_index, "tid": self._tid(),
+                    "args": args})
         self._beat.maybe_beat(self._status)
-        annotation = None
-        if self._annotation_cls is not None:
-            try:
-                annotation = self._annotation_cls(name)
-                annotation.__enter__()
-            except Exception:
-                annotation = None
         return _Span(self, name, annotation)
 
-    def _close_span(self, name: str) -> None:
+    def _close_span(self, name: str, ts: int) -> None:
         stack = self._stack()
         if stack and stack[-1] == name:
             stack.pop()
@@ -162,9 +173,8 @@ class Tracer:
             self.n_mismatched += 1
             if name in stack:
                 stack.remove(name)
-        self._emit({"name": name, "ph": "E",
-                    "ts": time.time_ns() // 1000, "pid": self.host_index,
-                    "tid": self._tid()})
+        self._emit({"name": name, "ph": "E", "ts": ts,
+                    "pid": self.host_index, "tid": self._tid()})
         self._beat.maybe_beat(self._status)
 
     def instant(self, name: str, cat: str, args: dict) -> None:

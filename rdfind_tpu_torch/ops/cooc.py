@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..obs import datastats, metrics
+from ..obs import datastats, metrics, tracer
 
 # Dep-tile width cap of the plan (the tile policy of the JAX package, kept so that
 # both packages plan identical shapes).
@@ -432,41 +432,46 @@ def discover_pairs_dense(m_t, dep_count, cap_code, cap_v1, cap_v2,
 
     kl, tile, num_caps = plan.line_block, plan.tile, plan.num_caps
     los = plan.dep_tile_starts
-    block_counts = stage_block_counts(m_t, kl=kl, tile=tile).cpu().numpy()
-    launches = sweep_launches(block_counts, los, tile)
-    empty = block_counts[:, [lo // tile for lo in los]] == 0
-    n_blocks_skipped = int(empty.sum())
-    n_tiles_data_skipped = int(empty.all(axis=0).sum())
-    metrics.gauge_set(stats, "n_blocks_skipped", n_blocks_skipped)
-    metrics.struct_update(stats, "dense_plan",
-                          n_blocks_skipped=n_blocks_skipped,
-                          n_tiles_data_skipped=n_tiles_data_skipped,
-                          n_launches=len(launches))
-    if stats is not None and datastats.enabled():
-        datastats.publish_block_skip(stats, n_blocks=plan.n_blocks,
-                                     n_blocks_skipped=n_blocks_skipped)
+    with tracer.profile_range("rdfind.sweep.schedule"):
+        block_counts = stage_block_counts(m_t, kl=kl,
+                                          tile=tile).cpu().numpy()
+        launches = sweep_launches(block_counts, los, tile)
+        empty = block_counts[:, [lo // tile for lo in los]] == 0
+        n_blocks_skipped = int(empty.sum())
+        n_tiles_data_skipped = int(empty.all(axis=0).sum())
+        metrics.gauge_set(stats, "n_blocks_skipped", n_blocks_skipped)
+        metrics.struct_update(stats, "dense_plan",
+                              n_blocks_skipped=n_blocks_skipped,
+                              n_tiles_data_skipped=n_tiles_data_skipped,
+                              n_launches=len(launches))
+        if stats is not None and datastats.enabled():
+            datastats.publish_block_skip(stats, n_blocks=plan.n_blocks,
+                                         n_blocks_skipped=n_blocks_skipped)
 
-    cols, rows = sweep_operands(dep_count, cap_code, cap_v1, cap_v2,
-                                min_support)
-    schedules = kernels.upload_schedules(
-        [(ln.block_ids, ln.block_ids.size) for ln in launches],
-        plan.n_line_blocks, m_t.device)
-    outs = [fused_cind_tile(m_t, ln.lo, ln.width, cols, rows, *sched)
-            for ln, sched in zip(launches, schedules)]
-    counts = (torch.stack([popc.sum() for _, popc in outs]).cpu().numpy()
-              if outs else np.zeros(0, np.int64))
-    deps, refs = [], []
-    for ln, (packed, _), n in zip(launches, outs, counts):
-        if not n:
-            continue
-        d, r = packed_nonzero(packed, min(num_caps - ln.lo, ln.width), num_caps)
-        deps.append(d + ln.lo)
-        refs.append(r)
-    if not deps:
-        z = np.zeros(0, np.int64)
-        return z, z, z
-    dep_id = torch.cat(deps)
-    ref_id = torch.cat(refs)
-    support = dep_count[dep_id].long()
-    return (dep_id.cpu().numpy(), ref_id.cpu().numpy(),
-            support.cpu().numpy())
+        cols, rows = sweep_operands(dep_count, cap_code, cap_v1, cap_v2,
+                                    min_support)
+        schedules = kernels.upload_schedules(
+            [(ln.block_ids, ln.block_ids.size) for ln in launches],
+            plan.n_line_blocks, m_t.device)
+    with tracer.profile_range("rdfind.sweep.launch"):
+        outs = [fused_cind_tile(m_t, ln.lo, ln.width, cols, rows, *sched)
+                for ln, sched in zip(launches, schedules)]
+    with tracer.profile_range("rdfind.sweep.decode"):
+        counts = (torch.stack([popc.sum() for _, popc in outs]).cpu().numpy()
+                  if outs else np.zeros(0, np.int64))
+        deps, refs = [], []
+        for ln, (packed, _), n in zip(launches, outs, counts):
+            if not n:
+                continue
+            d, r = packed_nonzero(packed, min(num_caps - ln.lo, ln.width),
+                                  num_caps)
+            deps.append(d + ln.lo)
+            refs.append(r)
+        if not deps:
+            z = np.zeros(0, np.int64)
+            return z, z, z
+        dep_id = torch.cat(deps)
+        ref_id = torch.cat(refs)
+        support = dep_count[dep_id].long()
+        return (dep_id.cpu().numpy(), ref_id.cpu().numpy(),
+                support.cpu().numpy())
