@@ -3,7 +3,6 @@ CPU.  Same numpy triples into both; the CIND sets (``to_rows()``) and the output
 digests (``integrity.digest_table``) must be equal, bit for bit.
 """
 
-import jax
 import numpy as np
 import pytest
 
@@ -20,16 +19,7 @@ from rdfind_tpu_torch.obs import integrity as tintegrity
 from rdfind_tpu_torch.ops import cooc as tcooc
 from rdfind_tpu_torch.ops import minimality as tminimality
 from rdfind_tpu_torch.utils import synth
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 WORKLOADS = {

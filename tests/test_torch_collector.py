@@ -7,7 +7,6 @@ import io
 import socket
 import threading
 
-import jax
 import pytest
 
 from rdfind_tpu.programs import rdfind as jcli
@@ -15,16 +14,7 @@ from rdfind_tpu.runtime import collector as jcollector
 from rdfind_tpu_torch.programs import rdfind as tcli
 from rdfind_tpu_torch.runtime import collector as tcollector
 from rdfind_tpu_torch.utils import synth
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 @pytest.fixture(scope="module")

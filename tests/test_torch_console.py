@@ -26,6 +26,7 @@ from rdfind_tpu_torch.obs import (console, datastats, heartbeat, integrity,
 from rdfind_tpu_torch.programs import rdfind as tcli
 from rdfind_tpu_torch.runtime import serving
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 SAMPLE_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$")
 CODES = jcc.ALL_VALID_CAPTURE_CODES[:3]

@@ -6,7 +6,6 @@ port is given ``M.T`` of the same array.  All quantities are integers or bits:
 exact.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,16 +19,7 @@ from rdfind_tpu_torch.models import allatonce as tallatonce
 from rdfind_tpu_torch.ops import cooc as tcooc
 from rdfind_tpu_torch.ops import kernels
 from rdfind_tpu_torch.utils import synth
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 @pytest.mark.parametrize("n_lines,num_caps", [(1, 1), (300, 130), (18608, 7309),

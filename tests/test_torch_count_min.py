@@ -7,7 +7,6 @@ lemma says the two agree; these tests hold them equal below, at and past the cap
 (the host-side cases of tests/test_sketch_saturation.py).  Tolerance: exact.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,20 +14,11 @@ import torch
 
 from rdfind_tpu.ops import sketch as jsketch
 from rdfind_tpu_torch.ops import sketch as tsketch
+from torch_harness import port_module, time_limit  # noqa: F401
 
 CAP = tsketch.MAX_COUNT_MIN_CAP
 BITS = 256
 K = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 def _rows(seed, n, lo, hi, n_keys=40):

@@ -13,7 +13,6 @@ import json
 import os
 import shutil
 
-import jax
 import numpy as np
 import pytest
 
@@ -25,22 +24,13 @@ from rdfind_tpu_torch.ops import hashing
 from rdfind_tpu_torch.programs import rdfind as tcli
 from rdfind_tpu_torch.runtime import delta
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 SUPPORT = "3"
 # The new digests of a generation: equal whichever package wrote it.
 DIGESTS = ("pass_digests", "full_digest", "ingest_digest", "dict_digest",
            "output_digest", "base_output_digest", "generation", "n_rows",
            "n_full", "n_triples", "n_values", "batch")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a worker that gathers too many hits the kernel's
-    per-process map limit inside XLA)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 @pytest.fixture(autouse=True)

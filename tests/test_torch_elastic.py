@@ -21,6 +21,7 @@ import torch_rank_cases
 from rdfind_tpu.utils.synth import write_nt
 from rdfind_tpu_torch.parallel import launch, mesh
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # ~5 dep-slice passes on 4 ranks for the file below.
@@ -35,7 +36,7 @@ def nt_file(tmp_path_factory):
     return str(path)
 
 
-def _cli(nt_file, out, *args, env=None, timeout=300):
+def _cli(nt_file, out, *args, env=None):
     """One CLI run (strategy 0, support 3); returns (rc, stderr, lines)."""
     full_env = {**os.environ, "RDFIND_BACKOFF_BASE_MS": "1",
                 "RDFIND_PAIR_ROW_BUDGET": BUDGET, **(env or {})}
@@ -43,7 +44,7 @@ def _cli(nt_file, out, *args, env=None, timeout=300):
         [sys.executable, "-m", "rdfind_tpu_torch.programs.rdfind", nt_file,
          "--support", "3", "--traversal-strategy", "0", "--device", "cpu",
          "--output", str(out), "--counters", "1", *args],
-        capture_output=True, text=True, timeout=timeout, env=full_env,
+        capture_output=True, text=True, timeout=100, env=full_env,
         cwd=REPO)
     lines = open(out).read().splitlines() if os.path.exists(out) else None
     return proc.returncode, proc.stderr, lines
@@ -127,7 +128,7 @@ def test_flip_on_one_rank_is_repaired_by_every_rank(nt_file, single,
     rc, err, lines = _cli(nt_file, tmp_path / "out.txt", "--dop", "4",
                           env={"RDFIND_INTEGRITY": "1",
                                "RDFIND_FAULTS": "flip@host_pull:nth=2:rank=2",
-                               "RDFIND_CERT": str(cert)}, timeout=120)
+                               "RDFIND_CERT": str(cert)})
     assert rc == 0, err
     assert lines == single
     c = json.load(open(cert))
@@ -144,8 +145,7 @@ def test_failed_copy_on_one_rank_retries_that_copy_alone(nt_file, single,
     rc, err, lines = _cli(nt_file, tmp_path / "out.txt", "--dop", "4",
                           env={"RDFIND_FAULTS":
                                "host_pull:rank=1:times=-1:p=0.25",
-                               "RDFIND_PULL_RETRIES": "5"},
-                          timeout=120)
+                               "RDFIND_PULL_RETRIES": "5"})
     assert rc == 0, err
     assert lines == single
 
@@ -155,8 +155,7 @@ def test_persistent_pull_failure_names_its_rank(nt_file, tmp_path):
     naming rank 1, the rank that failed first, not a peer whose collective
     it broke."""
     rc, err, _ = _cli(nt_file, tmp_path / "out.txt", "--dop", "4",
-                      env={"RDFIND_FAULTS": "host_pull:rank=1:times=-1"},
-                      timeout=120)
+                      env={"RDFIND_FAULTS": "host_pull:rank=1:times=-1"})
     assert rc == 1
     assert "rank 1 failed (exit 1): InjectedFault" in err
 
@@ -220,7 +219,7 @@ def test_failed_rank_fails_the_launch_at_once():
     t0 = time.monotonic()
     with pytest.raises(launch.RankFailed) as exc:
         launch.spawn(torch_rank_cases.fail_on_rank, 4, args=(2,),
-                     device="cpu")
+                     device="cpu", timeout_s=100)
     assert exc.value.rank == 2
     assert "planted failure on rank 2" in str(exc.value)
     assert time.monotonic() - t0 < 60
@@ -228,7 +227,7 @@ def test_failed_rank_fails_the_launch_at_once():
 
 def test_failed_rank_makes_the_cli_exit_non_zero(tmp_path):
     rc, err, _ = _cli(str(tmp_path / "missing.nt"), tmp_path / "out.txt",
-                      "--dop", "2", timeout=120)
+                      "--dop", "2")
     assert rc == 1
     assert "failed (exit 1)" in err and "no input files match" in err
 

@@ -23,18 +23,10 @@ from rdfind_tpu_torch.ops import hashing as thashing
 from rdfind_tpu_torch.ops import segments as tsegments
 from rdfind_tpu_torch.parallel import exchange as texchange
 from rdfind_tpu_torch.parallel import launch
+from torch_harness import port_module, time_limit  # noqa: F401
 
 N_PER_RANK = 64
 WORLD = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a test process has a per-process map limit)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 def _u32_cols(seed, n=4096, k=3):
@@ -188,7 +180,7 @@ def both(tmp_path_factory):
 
     def compute():
         port = launch.spawn(torch_rank_cases.exchange_cases, WORLD,
-                            args=(data,), device="cpu")
+                            args=(data,), device="cpu", timeout_s=100)
         return port, _jax_cases(data)
 
     return torch_rank_cases.shared_result(tmp_path_factory, "torch_exchange",

@@ -4,7 +4,6 @@ failure and under the serial schedule (RDFIND_SYNC_PASSES)."""
 
 import dataclasses
 
-import jax
 import pytest
 
 import rdfind_tpu
@@ -14,16 +13,7 @@ from rdfind_tpu_torch.obs import metrics as tmetrics
 from rdfind_tpu_torch.runtime import dispatch as tdispatch
 from rdfind_tpu_torch.runtime import faults as tfaults
 from rdfind_tpu_torch.utils import synth
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

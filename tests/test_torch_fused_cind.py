@@ -8,7 +8,6 @@ runs its plain PyTorch version, which is what the CUDA kernel is held against on
 the card.  Every output is a bit or a count: exact.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,16 +17,7 @@ from rdfind_tpu.ops import cooc as jcooc
 from rdfind_tpu.ops import pallas_kernels
 from rdfind_tpu_torch.ops import cooc as tcooc
 from rdfind_tpu_torch.ops import kernels
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 def _block_inputs(seed, l_pad, c_pad, lo=0, tile=128, live_blocks=None,

@@ -11,7 +11,6 @@ that do not depend on n_valid or min_support.  Its CUDA graph
 (``capture_fused_step``) runs only on the card: ``tests/test_torch_cuda.py``.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,17 +22,9 @@ from rdfind_tpu.utils import synth as jsynth
 from rdfind_tpu_torch import entry
 from rdfind_tpu_torch.models import allatonce
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 PAD = np.iinfo(np.int32).max
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a test process has a per-process map limit)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 def _entry_triples():

@@ -10,7 +10,6 @@ boundaries and rows.  The output must also equal the exact path's.
 
 import random
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -24,22 +23,13 @@ from rdfind_tpu_torch.obs import integrity as tintegrity
 from rdfind_tpu_torch.utils import synth
 
 from test_allatonce import random_triples
+from torch_harness import port_module, time_limit  # noqa: F401
 
 HA_KEYS = ("ha_spilled", "ha_round2_deps", "ha_explicit_pairs",
            "ha_round2_merged_pairs", "ha_round2_rows")
 STAT_KEYS = HA_KEYS + ("n_cinds_11", "n_proper_overlaps", "n_cinds_12",
                        "n_cinds_21", "n_inferred_21", "n_cinds_22",
                        "pairs_11", "total_pairs", "pair_backend")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 @pytest.fixture(scope="module")

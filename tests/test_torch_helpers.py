@@ -12,7 +12,6 @@ streamed engine against the serial engine and the JAX package's
 
 import datetime
 
-import jax
 import numpy as np
 import pytest
 import torch
@@ -28,14 +27,7 @@ from rdfind_tpu_torch.obs import metrics
 from rdfind_tpu_torch.parallel import exchange, launch
 from rdfind_tpu_torch.runtime import faults, multihost_ingest
 from rdfind_tpu_torch.utils import synth
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a test process has a per-process map limit)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 ALL_CODES = list(range(256))
@@ -265,7 +257,6 @@ def test_kernel_resolution_reaches_the_debug_lines(strategy):
     from rdfind_tpu_torch.models import sharded
     from rdfind_tpu_torch.obs import report
 
-    torch.set_num_threads(1)
     t = synth.generate_triples(300, seed=4, n_predicates=5, n_entities=30)
     stats = {}
     if strategy == "sharded":

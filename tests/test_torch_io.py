@@ -14,6 +14,7 @@ from rdfind_tpu.utils.trie import StringTrie as JTrie
 from rdfind_tpu_torch.io import prefixes as tprefixes
 from rdfind_tpu_torch.io import reader as treader
 from rdfind_tpu_torch.utils.trie import StringTrie as TTrie
+from torch_harness import port_module, time_limit  # noqa: F401
 
 PREFIX_LINES = [
     "@prefix dbr: <http://dbpedia.org/resource/> .",

@@ -2,7 +2,6 @@
 digests and the round statistics must be equal, bit for bit; with clean_implied
 the output must equal strategy 0's."""
 
-import jax
 import pytest
 
 import rdfind_tpu_torch
@@ -12,16 +11,7 @@ from rdfind_tpu_torch.models import late_bb as tlate_bb
 from rdfind_tpu_torch.obs import integrity as tintegrity
 from rdfind_tpu_torch.ops import cooc as tcooc
 from rdfind_tpu_torch.utils import synth
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 def _triples(seed):

@@ -18,9 +18,7 @@ import subprocess
 import sys
 import threading
 
-import jax
 import pytest
-import torch
 
 import torch_rank_cases
 from rdfind_tpu.models import late_bb as jlate_bb
@@ -30,27 +28,11 @@ from rdfind_tpu.runtime import multihost_ingest as jmultihost
 from rdfind_tpu_torch.parallel import launch
 from rdfind_tpu_torch.programs import rdfind as tcli
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SUPPORT = 2
 WORDS = ["Zürich", "café", "naïve", "東京", "plain"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, as the launcher gives each rank, for the
-    in-process runs (a one-rank mesh runs many small tensor operations)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _term(i, obj):
@@ -88,7 +70,7 @@ def _two_hosts(paths):
         out[h] = launch.spawn(torch_rank_cases.multihost_ingest_cases, 1,
                               args=(paths, SUPPORT, (1, 3)), device="cpu",
                               coordinator=coordinator, num_hosts=2,
-                              host_index=h, timeout_s=600)
+                              host_index=h, timeout_s=100)
 
     threads = [threading.Thread(target=host, args=(h,)) for h in (0, 1)]
     for t in threads:
@@ -160,7 +142,7 @@ def _cli_two_hosts(paths, tmp_path, flags):
          "1", *flags], cwd=_REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for h in (0, 1)]
     try:
-        outs = [p.communicate(timeout=600) for p in procs]
+        outs = [p.communicate(timeout=100) for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:

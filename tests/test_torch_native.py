@@ -15,6 +15,7 @@ from rdfind_tpu_torch.dictionary import intern_triples
 from rdfind_tpu_torch.io import native as tnative
 from rdfind_tpu_torch.io import ntriples, reader
 from rdfind_tpu_torch.ops.build import BUILD_DIR
+from torch_harness import port_module, time_limit  # noqa: F401
 
 NT = """\
 # a comment line

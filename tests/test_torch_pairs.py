@@ -2,7 +2,6 @@
 package's, on the CPU.  Same numpy inputs into both; every index, count and
 boundary must be equal."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,19 +12,10 @@ from rdfind_tpu.models import small_to_large as js2l
 from rdfind_tpu.ops import pairs as jpairs
 from rdfind_tpu_torch.models import allatonce as tallatonce
 from rdfind_tpu_torch.ops import pairs as tpairs
+from torch_harness import port_module, time_limit  # noqa: F401
 
 N_ROWS = 96  # one padded size for every case, so XLA compiles few programs
 CAPACITY = 2048
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
 
 
 def _lines(seed, n, max_len):

@@ -15,6 +15,7 @@ from rdfind_tpu_torch.programs import count_conditions as tconds
 from rdfind_tpu_torch.programs import count_distinct_values as tdistinct
 from rdfind_tpu_torch.programs import count_triples as tcount
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 PROGRAMS = {"count_triples": (jcount, tcount),
             "count_distinct_values": (jdistinct, tdistinct),

@@ -17,6 +17,7 @@ import rdfind_tpu_torch
 from rdfind_tpu_torch.models import allatonce
 from rdfind_tpu_torch.obs import tracer
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 PACKAGE = Path(rdfind_tpu_torch.__file__).parent
 

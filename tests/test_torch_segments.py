@@ -6,7 +6,6 @@ exact.  The JAX functions work at fixed shapes with a validity mask; the port's 
 exact shapes, so they are compared on the valid prefix.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,16 +13,7 @@ import torch
 
 from rdfind_tpu.ops import segments as jseg
 from rdfind_tpu_torch.ops import segments as tseg
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 # (seed, rows, key columns, key range): keys in [-1, hi) so NO_VALUE = -1 occurs.

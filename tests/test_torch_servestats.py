@@ -12,6 +12,7 @@ import pytest
 
 from rdfind_tpu.obs import servestats as jstats
 from rdfind_tpu_torch.obs import servestats
+from torch_harness import port_module, time_limit  # noqa: F401
 
 KNOBS = ("RDFIND_SERVE_OBS", "RDFIND_SERVE_OBS_SLOW_US",
          "RDFIND_SERVE_OBS_SLOWLOG", "RDFIND_SLO_P99_US",

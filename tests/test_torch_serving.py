@@ -26,6 +26,7 @@ from rdfind_tpu_torch.dictionary import intern_triples
 from rdfind_tpu_torch.programs import rdfind as tcli
 from rdfind_tpu_torch.runtime import serving
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODES = jcc.ALL_VALID_CAPTURE_CODES[:3]
@@ -368,7 +369,7 @@ def test_serve_process_runs_without_initialising_cuda(tmp_path):
                          obs=str(tmp_path / "obs"))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                       text=True, timeout=120, cwd=REPO, env=env)
+                       text=True, timeout=100, cwd=REPO, env=env)
     assert r.returncode == 0, r.stderr
     assert r.stdout.split() == ["rc", "0", "cuda_initialized", "False"]
     assert "generation 0 loaded" in r.stderr

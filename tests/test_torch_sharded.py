@@ -16,7 +16,6 @@ port's own ``entry.dryrun_multichip``, checked by ``entry.check_dryrun``.
 Tolerance: exact equality throughout.
 """
 
-import jax
 import numpy as np
 import pytest
 
@@ -32,15 +31,10 @@ from rdfind_tpu_torch import entry
 from rdfind_tpu_torch import oracle as toracle
 from rdfind_tpu_torch.parallel import launch
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a test process has a per-process map limit)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+# A rank group launches in whichever test first needs one of its cases.
+pytestmark = pytest.mark.time_limit(400)
 
 
 def _plain():
@@ -171,7 +165,7 @@ def _port_results(group):
     cases = [(name, f(), s, kw, env)
              for name, (g, f, s, kw, env) in CASES.items() if g == group]
     return launch.spawn(torch_rank_cases.sharded_cases, _world(group),
-                        args=(cases,), device="cpu")
+                        args=(cases,), device="cpu", timeout_s=360)
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,6 @@ budget guards, and the three strategies against the JAX twins.  Tolerance:
 exact equality throughout.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,29 +30,10 @@ from rdfind_tpu_torch.ops import sketch
 from rdfind_tpu_torch.parallel import launch
 from rdfind_tpu_torch.parallel.mesh import Mesh
 from rdfind_tpu_torch.utils import synth
+from torch_harness import port_module, time_limit  # noqa: F401
 
 TWINS = {0: jallatonce.discover, 1: jsmall_to_large.discover,
          2: japproximate.discover, 3: jlate_bb.discover}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module (each keeps
-    executable mappings; a test process has a per-process map limit)."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread, as the launcher gives each rank: the one-rank
-    runs below are many small tensor operations, which a thread pool
-    oversubscribed by the test workers slows by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -79,7 +59,8 @@ def port(tmp_path_factory):
     return torch_rank_cases.shared_result(
         tmp_path_factory, "torch_sharded_preshard4",
         lambda: launch.spawn(torch_rank_cases.preshard_cases, 4,
-                             args=(_ruled(), SUPPORT), device="cpu"))
+                             args=(_ruled(), SUPPORT), device="cpu",
+                             timeout_s=100))
 
 
 def _jax_preshard(triples, mesh):

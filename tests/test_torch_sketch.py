@@ -7,7 +7,6 @@ output is a bit, a position or a count: all comparisons are exact.  Packed words
 are uint32 in the JAX package and the same bit patterns as int32 in the port.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,16 +19,7 @@ from rdfind_tpu_torch import state
 from rdfind_tpu_torch.ops import hashing as thashing
 from rdfind_tpu_torch.ops import kernels
 from rdfind_tpu_torch.ops import sketch as tsketch
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 def _i32(words) -> np.ndarray:

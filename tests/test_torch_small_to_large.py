@@ -7,7 +7,6 @@ JAX tests hold S2L against the raw-output oracle or AllAtOnce, so does the port.
 
 import random
 
-import jax
 import numpy as np
 import pytest
 
@@ -24,16 +23,7 @@ from rdfind_tpu_torch.utils import synth
 
 from test_allatonce import random_triples
 from test_small_to_large import s2l_raw_oracle
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _release_jax_programs():
-    """Drop the XLA programs compiled in and before this module: each keeps
-    executable memory mappings, and a test process that gathers too many hits
-    the kernel's per-process map limit (vm.max_map_count) inside XLA."""
-    jax.clear_caches()
-    yield
-    jax.clear_caches()
+from torch_harness import port_module, time_limit  # noqa: F401
 
 
 BACKENDS = ["matmul", "chunked"]
