@@ -16,7 +16,9 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    version's time, the time of one library call for the same function (a
    yardstick the port never calls), the least time the card could take
    (``bound_ms``), the rate reached (``tops``) and ``share_of_bound``: K1
-   (strategy 0's fused sweep on the K-major membership Mᵀ), K2 (the Bloom
+   (strategy 0's fused sweep on the K-major membership Mᵀ), K3 (the
+   membership counts, on each workload's Mᵀ; ``--only membership`` runs the
+   build and K3's rows alone, with no result line), K2 (the Bloom
    containment of strategies 2 and 3, on the sketches the port builds) and the
    probes P1 and P2;
 4. the main paths, ``rdfind_tpu_torch.discover(..., strategy=0|1|2|3)``, on the
@@ -259,12 +261,14 @@ GOLDEN_HA = {
              ha_round2_merged_pairs=831968, ha_round2_rows=5004455,
              pairs_11=42536208),
 }
-# The kernels each main path must launch.  Strategy 1 launches none: its
+# The kernels each main path must launch.  Strategy 1 must launch none: its
 # lattice is torch ops and torch._int_mm, and the JAX package has no Pallas
-# kernel on that path either.  Nor does strategy 0's chunked backend
+# kernel on that path either (its dense lattice counts the membership with
+# K3, its chunked walk does not).  Nor does strategy 0's chunked backend
 # (path_kernels); strategies 2 and 3 reach K2 on either backend.
 K2_PATH = ("packed_contains_matrix", "repeat_probe", "pipeline_probe")
-PATH_KERNELS = {0: ("fused_cind_blocks",), 1: (), 2: K2_PATH, 3: K2_PATH}
+PATH_KERNELS = {0: ("fused_cind_blocks", "membership_counts"), 1: (),
+                2: K2_PATH, 3: K2_PATH}
 
 
 def path_kernels(strategy: int, kw: dict) -> tuple:
@@ -332,7 +336,8 @@ def rate_fields(ops: int, nbytes: int, ms: float) -> dict:
 
 
 KERNEL_NAMES = ("fused_cind_kernel", "contains_kernel", "repeat_probe_kernel",
-                "pipeline_probe_kernel")
+                "pipeline_probe_kernel", "membership_counts_rows_kernel",
+                "membership_counts_lines_kernel")
 
 
 def ptxas_report(log: str) -> list:
@@ -367,14 +372,15 @@ def prepare(triples, support: int, device) -> dict:
      num_caps) = allatonce._stage_prepare(t, support, projections="spo",
                                           use_fc_filter=True)
     plan = cooc.dense_plan(n_lines, num_caps, device)
-    m_t, dep_count, _ = allatonce._stage_membership(
-        line_gid, cap_id, valid, support, l_pad=plan.l_pad, c_pad=plan.c_pad)
+    m_t, dep_count, _, counts = allatonce._stage_membership(
+        line_gid, cap_id, valid, support, l_pad=plan.l_pad, c_pad=plan.c_pad,
+        tile=plan.tile)
     cols, rows = cooc.sweep_operands(
         dep_count, allatonce._fit(code, plan.c_pad),
         allatonce._fit(v1, plan.c_pad), allatonce._fit(v2, plan.c_pad), support)
-    counts = cooc.stage_block_counts(m_t, kl=plan.line_block,
-                                     tile=plan.tile).cpu().numpy()
-    return dict(m=m_t, plan=plan, cols=cols, rows=rows, counts=counts,
+    counts = counts.cpu().numpy()
+    return dict(m=m_t, plan=plan, support=support, cols=cols, rows=rows,
+                counts=counts,
                 launches=cooc.sweep_launches(counts, plan.dep_tile_starts,
                                              plan.tile))
 
@@ -512,6 +518,53 @@ def run_k1_cases(cases, device) -> list:
                    library_ms=lib_ms,
                    library="torch._int_mm, the int8 product alone",
                    **rate_fields(ops, nbytes, k_ms))
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def run_k3_cases(preps: dict, device) -> list:
+    """K3 against its plain version on each workload's Mᵀ, bit-exact, with
+    its device time, the plain version's, and the widened torch sums it
+    replaces as the yardstick (each an int32 copy of Mᵀ).  Its bound: Mᵀ read
+    once, the frequent rows once more, the int32 outputs written once."""
+    rows = []
+    for name, p in preps.items():
+        m, plan, support = p["m"], p["plan"], p["support"]
+        kw = dict(kl=plan.line_block, tile=plan.tile)
+        got = kernels.membership_counts(m, support, **kw)
+        want = kernels.membership_counts_plain(m, support, **kw)
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"membership_counts disagrees with its plain "
+                                 f"version on {name} (max abs err {err})")
+
+        def widened():
+            c_pad, l_pad = m.shape
+            dep = m.sum(dim=1, dtype=torch.int32)
+            mask = (dep >= support).to(torch.int8)
+            blocks = m.reshape(c_pad // plan.tile, plan.tile,
+                               l_pad // plan.line_block, plan.line_block)
+            return (dep, (m * mask[:, None]).sum(dim=0, dtype=torch.int32),
+                    blocks.sum(dim=(1, 3), dtype=torch.int32).T)
+
+        k_ms = time_ms(lambda: kernels.membership_counts(m, support, **kw),
+                       device, reps=20, device_only=True)
+        p_ms = time_ms(lambda: kernels.membership_counts_plain(m, support,
+                                                               **kw),
+                       device, reps=3)
+        lib_ms = time_ms(widened, device, reps=3)
+        c_pad, l_pad = m.shape
+        n_freq = int((got[0] >= support).sum())
+        nbytes = (c_pad + n_freq) * l_pad + 4 * (c_pad + l_pad
+                                                 + got[2].numel())
+        row = dict(phase="kernel", kernel="membership_counts",
+                   case=f"{name}_membership", c_pad=c_pad, l_pad=l_pad,
+                   kl=plan.line_block, tile=plan.tile, frequent_rows=n_freq,
+                   ops=0, bytes=nbytes, match=True, max_abs_err=err,
+                   kernel_ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+                   library="the widened torch sums K3 replaces",
+                   **rate_fields(0, nbytes, k_ms))
         emit(row)
         rows.append(row)
     return rows
@@ -2610,7 +2663,12 @@ def main() -> int:
         emit({"partial": "sharded_s123", "ok": True})
         return 0
     preps = {name: prepare(t, s, device) for name, (t, s) in data.items()}
+    if sys.argv[1:] == ["--only", "membership"]:
+        run_k3_cases(preps, device)
+        emit({"partial": "membership", "ok": True})
+        return 0
     k1_rows = run_k1_cases(k1_cases(preps, device), device)
+    k3_rows = run_k3_cases(preps, device)
     del preps
     sk_preps = {name: sketch_prepare(t, s, device)
                 for name, (t, s) in data.items()}
@@ -2720,6 +2778,16 @@ def main() -> int:
              library_ms=real2["library_ms"], tops=real2["tops"],
              share_of_bound=real2["share_of_bound"]),
     ]
+    real3 = next(r for r in k3_rows if r["case"] == f"{REAL_SIZE}_membership")
+    line.append(dict(name="membership_counts", route="cuda",
+                     source="rdfind_tpu_torch/csrc/membership.cu",
+                     replaces="none: the XLA sums of _stage_membership",
+                     launches=launches0["membership_counts"],
+                     max_abs_err=max(r["max_abs_err"] for r in k3_rows),
+                     ms=real3["kernel_ms"], plain_ms=real3["plain_ms"],
+                     bound_ms=real3["bound_ms"], bound_by=real3["bound_by"],
+                     library_ms=real3["library_ms"],
+                     share_of_bound=real3["share_of_bound"]))
     for name, replaces in (("repeat_probe", "pallas_kernels.py:114"),
                            ("pipeline_probe", "pallas_kernels.py:250")):
         r = probe_rows[name]

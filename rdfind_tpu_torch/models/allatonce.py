@@ -173,20 +173,25 @@ def publish_datastats(stats, line_lens, dep_count) -> None:
 
 
 def _stage_membership(line_gid, cap_id, valid, min_support: int, *,
-                      l_pad: int, c_pad: int):
+                      l_pad: int, c_pad: int, tile: int):
     """Membership matrix Mᵀ (captures x lines) + the aggregates that fall out
     of it.
 
-    Returns (m_t, dep_count, lens): dep_count[c] = distinct join values
-    containing capture c (row sums of Mᵀ); lens[l] = frequent captures in line l
-    (column sums over the frequent rows).
+    Returns (m_t, dep_count, lens, block_counts): dep_count[c] = distinct join
+    values containing capture c (row sums of Mᵀ); lens[l] = frequent captures
+    in line l (column sums over the frequent rows); block_counts the (line
+    block x dep `tile`) popcounts of the sweep's schedule.  The sums are K3's
+    (``kernels.membership_counts``), read off the int8 Mᵀ in place.
     """
-    m_t = cooc.build_membership(line_gid, cap_id, valid, l_pad=l_pad,
-                                c_pad=c_pad)
-    dep_count = m_t.sum(dim=1, dtype=torch.int32)
-    freq_mask = (dep_count >= min_support).to(torch.int8)
-    lens = (m_t * freq_mask[:, None]).sum(dim=0, dtype=torch.int32)
-    return m_t, dep_count, lens
+    from ..ops import kernels
+
+    with tracer.profile_range("rdfind.membership.scatter"):
+        m_t = cooc.build_membership(line_gid, cap_id, valid, l_pad=l_pad,
+                                    c_pad=c_pad)
+    with tracer.profile_range("rdfind.membership.counts"):
+        dep_count, lens, block_counts = kernels.membership_counts(
+            m_t, min_support, kl=cooc.line_block_for(l_pad), tile=tile)
+    return m_t, dep_count, lens, block_counts
 
 
 def _fit(arr, length: int):
@@ -230,7 +235,8 @@ def _discover_dense(triples, min_support: int, projections: str,
     if n_lines == 0 or num_caps == 0:
         return CindTable.empty()
     with tracer.profile_range("rdfind.plan"):
-        plan = cooc.dense_plan(n_lines, num_caps, triples.device)
+        plan = cooc.dense_plan(n_lines, num_caps, triples.device,
+                               scatter_rows=cand_valid.shape[0])
         if plan is None:
             return None
         metrics.struct_set(stats, "dense_plan", plan.describe())
@@ -239,12 +245,13 @@ def _discover_dense(triples, min_support: int, projections: str,
                            cooc.resolution_report(triples.device))
 
     with tracer.profile_range("rdfind.membership"):
-        m_t, dep_count, lens = _stage_membership(
+        m_t, dep_count, lens, block_counts = _stage_membership(
             line_gid, cap_id, cand_valid, min_support, l_pad=plan.l_pad,
-            c_pad=plan.c_pad)
+            c_pad=plan.c_pad, tile=plan.tile)
+    del line_gid, cap_id, cand_valid
     with tracer.profile_range("rdfind.sweep"):
         dep_id, ref_id, support = cooc.discover_pairs_dense(
-            m_t, dep_count, _fit(cap_code, plan.c_pad),
+            m_t, dep_count, block_counts, _fit(cap_code, plan.c_pad),
             _fit(cap_v1, plan.c_pad), _fit(cap_v2, plan.c_pad), min_support,
             plan, stats=stats)
     del m_t

@@ -164,7 +164,13 @@ def _dense_verify_counts(line_val_h, line_cap_h, num_caps, cand_dep, cand_ref,
         return np.zeros(len(cand_dep), np.int64)
     starts = _line_starts(lv)
     line_gid = np.cumsum(starts) - 1
-    plan = cooc.dense_plan(int(line_gid[-1]) + 1, num_caps, device)
+    # Beside the strategy-0 footprint: the uploaded rows, one dep tile's
+    # (tile, c_pad) int32 product and the candidates' ids and counts.
+    n_lines = int(line_gid[-1]) + 1
+    _, c_pad, tile = cooc.padded_shape(n_lines, num_caps)
+    plan = cooc.dense_plan(
+        n_lines, num_caps, device, scatter_rows=n,
+        extra_bytes=17 * n + 4 * tile * c_pad + 20 * len(cand_dep))
     if plan is None or plan.c_pad > cooc.SINGLE_SHOT_C:
         return None
     if stats is not None:

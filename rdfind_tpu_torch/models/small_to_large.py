@@ -320,12 +320,16 @@ def _prepare_dense(triples, min_support, projections, use_fc_filter, use_ars,
                                           use_ars=use_ars)
     if n_lines == 0 or num_caps == 0:
         return ()
-    plan = cooc.dense_plan(n_lines, num_caps, triples.device)
+    # Beside the strategy-0 footprint: the resident (c_pad, c_pad) int32 cooc.
+    c_pad = cooc.padded_shape(n_lines, num_caps)[1]
+    plan = cooc.dense_plan(n_lines, num_caps, triples.device,
+                           scatter_rows=valid.shape[0],
+                           extra_bytes=4 * c_pad * c_pad)
     if plan is None or plan.c_pad > cooc.SINGLE_SHOT_C:
         return None
-    m_t, dep_count_d, lens = allatonce._stage_membership(
+    m_t, dep_count_d, lens, _ = allatonce._stage_membership(
         line_gid, cap_id, valid, min_support, l_pad=plan.l_pad,
-        c_pad=plan.c_pad)
+        c_pad=plan.c_pad, tile=plan.tile)
     with tracer.profile_range("rdfind.cooc"):
         cooc_m = cooc.cooc_dot(m_t, m_t)
     host = [t.cpu().numpy().astype(np.int64)

@@ -35,6 +35,8 @@ SIGNATURES = {
     "contains": {"contains_launch": [_P] * 4 + [_I] * 3 + [_P],
                  "repeat_probe_launch": [_P, _P, _I, _I, _P],
                  "pipeline_probe_launch": [_P, _P, _I, _P]},
+    "membership": {"membership_rows_launch": [_P, _LL] + [_I] * 4 + [_P] * 3,
+                   "membership_lines_launch": [_P, _LL, _I, _I] + [_P] * 3},
 }
 
 

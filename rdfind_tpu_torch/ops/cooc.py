@@ -36,6 +36,16 @@ SINGLE_SHOT_C = 16384
 # Dep columns one kernel launch covers at most: the sweep joins adjacent
 # scheduled tiles up to this width, so a narrow plan tile still fills the card.
 LAUNCH_COLS = 1024
+# Candidate rows build_membership scatters at a time, and the device bytes
+# each of them takes meanwhile (its flat index, one gathered id and the mask
+# index's own int64 row numbers).
+SCATTER_ROWS = 1 << 24
+SCATTER_ROW_BYTES = 24
+# Device bytes the CUDA plan leaves beside what it reckons: the CUDA
+# libraries' workspaces, the caching allocator's rounding and the free tails of
+# its split blocks, and the decoded (dep, ref) pairs, whose number no plan
+# knows before the sweep.
+PLAN_MARGIN_BYTES = 2 << 30
 
 
 def round_up(n: int, mult: int) -> int:
@@ -83,6 +93,8 @@ class DensePlan:
     num_caps: int
     line_block: int
     dtype: str = "int8"
+    footprint_bytes: int = 0
+    budget_bytes: int = 0
 
     @property
     def dep_tile_starts(self) -> tuple:
@@ -124,6 +136,8 @@ class DensePlan:
             "issued_flops": self.issued_flops, "real_flops": self.real_flops,
             "occupancy": round(self.real_flops / max(self.issued_flops, 1),
                                4),
+            "footprint_bytes": self.footprint_bytes,
+            "budget_bytes": self.budget_bytes,
         }
 
 
@@ -141,39 +155,105 @@ def resolution_report(device) -> dict:
             "k1_route": route, "k2_route": route}
 
 
-def m_budget_bytes(device) -> int:
-    """Bytes M may take: half the card's free memory on CUDA, the JAX package's
-    6 GiB on the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0] // 2
-    return CPU_M_BUDGET_BYTES
-
-
-def dense_plan(n_lines: int, num_caps: int, device, tile: int = DEFAULT_TILE):
-    """DensePlan for the dense sweep, or None when M does not fit the budget."""
-    if n_lines == 0 or num_caps == 0:
-        return None
+def padded_shape(n_lines: int, num_caps: int, tile: int = DEFAULT_TILE):
+    """(l_pad, c_pad, dep tile) of the dense plan for these counts."""
     l_pad = round_up(n_lines, LINE_MULT)
     c_pad = cap_pad(num_caps)
-    if l_pad * c_pad > m_budget_bytes(device):
+    return l_pad, c_pad, tile_for(c_pad, tile)
+
+
+def dense_footprint(l_pad: int, c_pad: int, tile: int, *,
+                    scatter_rows: int = 0, extra_bytes: int = 0) -> int:
+    """Device bytes the dense path allocates at its peak, while Mᵀ is alive,
+    beside what the job holds when it plans.
+
+    `scatter_rows` are the candidate rows build_membership scatters,
+    `extra_bytes` what a caller's path allocates beside Mᵀ besides this
+    path's own.  Beside Mᵀ: K3's outputs (dep_count, its mask, lens, the
+    block counts), then the larger of the scatter's bounded temporaries and
+    the sweep's (K1's operands and schedules, every launch's packed verdicts
+    and popcounts, and the decode of the widest launch: its bits unpacked as
+    two int32 tensors at once).
+    """
+    kl = line_block_for(l_pad)
+    m_bytes = l_pad * c_pad
+    counts = 4 * (c_pad + l_pad + (l_pad // kl) * (c_pad // tile)) + 2 * c_pad
+    scatter = SCATTER_ROW_BYTES * min(int(scatter_rows), SCATTER_ROWS)
+    n_launch = -(-c_pad // tile)
+    width = min(max(LAUNCH_COLS, tile), c_pad)
+    sweep = (4 * 9 * c_pad + 4 * n_launch * (l_pad // kl + 1)
+             + c_pad * (c_pad // 8 + 4) + 8 * width * c_pad)
+    return m_bytes + counts + max(scatter, sweep) + int(extra_bytes)
+
+
+def device_memory(device) -> tuple:
+    """(free, reserved, allocated) bytes of a CUDA device: its free memory
+    (``cudaMemGetInfo``), and this process's caching allocator's reserved
+    and allocated bytes (read from one nested stats dict: ``memory_reserved``
+    and ``memory_allocated`` each flatten and sort all of them)."""
+    free = torch.cuda.mem_get_info(device)[0]
+    stats = torch.cuda.memory_stats_as_nested_dict(device)
+
+    def current(key):
+        return stats.get(key, {}).get("all", {}).get("current", 0)
+
+    return free, current("reserved_bytes"), current("allocated_bytes")
+
+
+def dense_plan(n_lines: int, num_caps: int, device, tile: int = DEFAULT_TILE,
+               *, scatter_rows: int = 0, extra_bytes: int = 0):
+    """DensePlan for the dense sweep, or None when it does not fit the budget.
+
+    On CUDA the footprint is what the process holds already (the allocator's
+    allocated bytes: the triples, prepare's outputs) plus what the path
+    allocates at its peak (``dense_footprint``); the budget is what the
+    process can hold: the device's free memory and the allocator's reserved
+    blocks (its cache, which it frees and retries before it fails an
+    allocation), less PLAN_MARGIN_BYTES.  What earlier jobs left cached
+    counts as usable, so it does not change the plan.  On the CPU the plan
+    admits Mᵀ alone against the JAX package's 6 GiB, so that both packages
+    plan alike.
+    """
+    if n_lines == 0 or num_caps == 0:
         return None
-    return DensePlan(l_pad=l_pad, c_pad=c_pad, tile=tile_for(c_pad, tile),
-                     n_lines=n_lines, num_caps=num_caps,
-                     line_block=line_block_for(l_pad))
+    l_pad, c_pad, tile = padded_shape(n_lines, num_caps, tile)
+    footprint = dense_footprint(l_pad, c_pad, tile, scatter_rows=scatter_rows,
+                                extra_bytes=extra_bytes)
+    if torch.device(device).type == "cuda":
+        free, reserved, allocated = device_memory(device)
+        footprint += allocated
+        budget = free + reserved - PLAN_MARGIN_BYTES
+        fits = footprint <= budget
+    else:
+        budget = CPU_M_BUDGET_BYTES
+        fits = l_pad * c_pad <= budget
+    if not fits:
+        return None
+    return DensePlan(l_pad=l_pad, c_pad=c_pad, tile=tile, n_lines=n_lines,
+                     num_caps=num_caps, line_block=line_block_for(l_pad),
+                     footprint_bytes=footprint, budget_bytes=budget)
 
 
 def build_membership(line_gid, cap_id, valid, *, l_pad: int, c_pad: int):
     """Scatter the valid (line, capture) rows into the (c_pad, l_pad) int8 0/1
     matrix Mᵀ: row c holds capture c's lines.  Rows are masked before the
-    scatter; duplicates set the same 1."""
+    scatter; duplicates set the same 1.  The rows go SCATTER_ROWS at a time,
+    which bounds the scatter's temporaries; offsets into Mᵀ are int64."""
     m_t = torch.zeros((c_pad, l_pad), dtype=torch.int8, device=line_gid.device)
-    li = line_gid[valid].long()
-    ci = cap_id[valid].long()
-    if li.numel() and (int(li.max()) >= l_pad or int(ci.max()) >= c_pad
-                       or int(li.min()) < 0 or int(ci.min()) < 0):
-        raise ValueError("membership row out of the planned shape")
-    m_t.view(-1)[ci * l_pad + li] = 1
+    flat = m_t.view(-1)
+    for lo in range(0, valid.shape[0], SCATTER_ROWS):
+        sl = slice(lo, lo + SCATTER_ROWS)
+        keep = valid[sl]
+        idx = cap_id[sl][keep].to(torch.int64)
+        if not idx.numel():
+            continue
+        li = line_gid[sl][keep].to(torch.int64)
+        lo_l, hi_l, lo_c, hi_c = torch.stack(
+            [li.min(), li.max(), idx.min(), idx.max()]).tolist()
+        if lo_l < 0 or hi_l >= l_pad or lo_c < 0 or hi_c >= c_pad:
+            raise ValueError("membership row out of the planned shape")
+        flat[idx.mul_(l_pad).add_(li)] = 1
+        del idx, li
     return m_t
 
 
@@ -213,14 +293,6 @@ def cooc_dot(a, b):
                              f"of 8 and contiguous operands: M={m} K={k} N={n}")
         return torch._int_mm(a, b.T)
     return (a.to(torch.float64) @ b.to(torch.float64).T).to(torch.int32)
-
-
-def stage_block_counts(m_t, *, kl: int, tile: int):
-    """(l_pad//kl, c_pad//tile) int32 membership popcounts per (line block x dep
-    tile) of Mᵀ: the record the block-skip schedule is built from."""
-    c_pad, l_pad = m_t.shape
-    blocks = m_t.reshape(c_pad // tile, tile, l_pad // kl, kl)
-    return blocks.sum(dim=(1, 3), dtype=torch.int32).T.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,16 +442,13 @@ def extract_packed_iter(thunks, tile_bits: int):
     return out
 
 
-def union_line_counts(m_t, mask, rows_per_step: int = 2048):
+def union_line_counts(m_t, mask):
     """Per-line count of the mask-flagged captures: the (l_pad,) int32
-    product maskᵀ Mᵀ, summed over row slices of Mᵀ so that no temporary
-    exceeds `rows_per_step` rows.  A plain torch product; no host sync."""
-    out = torch.zeros(m_t.shape[1], dtype=torch.int32, device=m_t.device)
-    mask = mask.to(torch.int8)
-    for lo in range(0, m_t.shape[0], rows_per_step):
-        sl = slice(lo, lo + rows_per_step)
-        out += (m_t[sl] * mask[sl, None]).sum(dim=0, dtype=torch.int32)
-    return out
+    product maskᵀ Mᵀ, K3's line pass (``kernels.membership_line_counts``),
+    which reads the flagged rows of the int8 Mᵀ in place.  No host sync."""
+    from . import kernels
+
+    return kernels.membership_line_counts(m_t, mask)
 
 
 def fused_cind_tile(m_t, lo: int, width: int, cols: dict, rows: dict,
@@ -415,13 +484,15 @@ def sweep_operands(dep_count, cap_code, cap_v1, cap_v2, min_support: int):
     return cols, rows
 
 
-def discover_pairs_dense(m_t, dep_count, cap_code, cap_v1, cap_v2,
-                         min_support: int, plan: DensePlan, stats=None):
+def discover_pairs_dense(m_t, dep_count, block_counts, cap_code, cap_v1,
+                         cap_v2, min_support: int, plan: DensePlan,
+                         stats=None):
     """Run the tiled CIND sweep; return host (dep_id, ref_id, support) int64 arrays.
 
     m_t: (c_pad, l_pad) int8 membership Mᵀ; dep_count/cap_*: (c_pad,)
-    per-capture support and identity columns on its device.  The block
-    popcounts prune the schedule first (dep tiles whose captures occur in no
+    per-capture support and identity columns on its device; block_counts the
+    (l_pad // line_block, c_pad // tile) popcounts K3 counts with dep_count
+    (``kernels.membership_counts``).  The block popcounts prune the schedule first (dep tiles whose captures occur in no
     line are dropped, and each launch visits only its non-empty line blocks);
     all launches' schedules are checked on the host and reach the device in one
     copy, then every launch is queued back to back with no host sync between
@@ -433,8 +504,7 @@ def discover_pairs_dense(m_t, dep_count, cap_code, cap_v1, cap_v2,
     kl, tile, num_caps = plan.line_block, plan.tile, plan.num_caps
     los = plan.dep_tile_starts
     with tracer.profile_range("rdfind.sweep.schedule"):
-        block_counts = stage_block_counts(m_t, kl=kl,
-                                          tile=tile).cpu().numpy()
+        block_counts = block_counts.cpu().numpy()
         launches = sweep_launches(block_counts, los, tile)
         empty = block_counts[:, [lo // tile for lo in los]] == 0
         n_blocks_skipped = int(empty.sum())

@@ -18,6 +18,13 @@ the Bloom containment test of the approximate strategies on packed words.  P1
 ``_repeat_is_tile`` and ``emit_pipeline_supported``; they are built into K2's
 library and ``check_contains_library`` runs both before the first candidate pass
 on a device.
+
+K3 ``membership_counts`` replaces no TPU kernel: the sums the JAX package leaves
+to XLA reductions over M (a capture's support, the frequent captures of each
+line, the block popcounts of the sweep's schedule), read off the int8 Mᵀ in
+place.  A torch sum with ``dtype=torch.int32`` casts its whole input first, an
+int32 copy of Mᵀ four times its size; K3 writes nothing wider than its int32
+outputs, and its plain versions widen one bounded slab of rows at a time.
 """
 
 from __future__ import annotations
@@ -34,14 +41,18 @@ CIND_KC = 128  # lines per pipeline stage of K1: a line block is a multiple
 CONTAINS_BLOCK_D = 64
 CONTAINS_BLOCK_R = 64
 
+# Elements of Mᵀ that K3's plain versions widen to int32 at a time.
+MEMBERSHIP_SLAB_ELEMS = 1 << 24
+
 LAUNCHES = {"fused_cind_blocks": 0, "packed_contains_matrix": 0,
-            "repeat_probe": 0, "pipeline_probe": 0}
+            "repeat_probe": 0, "pipeline_probe": 0, "membership_counts": 0}
 # The CUDA symbol of each wrapper's kernel (csrc/), as a profiler trace names
-# its device events.
+# its device events (K3's two kernels share one prefix).
 SYMBOLS = {"fused_cind_blocks": "fused_cind_kernel",
            "packed_contains_matrix": "contains_kernel",
            "repeat_probe": "repeat_probe_kernel",
-           "pipeline_probe": "pipeline_probe_kernel"}
+           "pipeline_probe": "pipeline_probe_kernel",
+           "membership_counts": "membership_counts_"}
 
 
 def reset_launches() -> None:
@@ -209,6 +220,138 @@ def fused_cind_blocks_plain(m_dep, m, sup_col, ok_col, gid_col, dcode_col,
         row(rv1_row) == col(dv1_col), row(rv1_row) == col(dv2_col))
     v = is_cind & ~implied
     return cooc.pack_bool(v), v.sum(dim=1, dtype=torch.int32)
+
+
+def _check_membership(name: str, m_t) -> None:
+    if m_t.dtype != torch.int8 or m_t.dim() != 2:
+        raise TypeError(f"{name} takes the (c_pad, l_pad) int8 membership, "
+                        f"got {tuple(m_t.shape)} {m_t.dtype}")
+    if m_t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {m_t.device}")
+    if m_t.shape[0] > 1 and m_t.shape[1] > 1 and m_t.stride(1) != 1:
+        raise ValueError(f"{name}: the membership must be contiguous along "
+                         f"the lines")
+
+
+def _membership_launch(m_t, symbol: str, *args) -> None:
+    """Launch one of K3's kernels on the current stream of Mᵀ's device and
+    raise on a non-zero status; count the launch."""
+    c_pad, l_pad = m_t.shape
+    if l_pad % 16 or m_t.data_ptr() % 16 or m_t.stride(0) % 16:
+        raise ValueError(f"K3 needs 16-byte aligned membership rows and lines "
+                         f"in multiples of 16: l_pad={l_pad}, row stride "
+                         f"{m_t.stride(0)}")
+    lib = build.load("membership")
+    with torch.cuda.device(m_t.device):
+        err = getattr(lib, symbol)(
+            m_t.data_ptr(), m_t.stride(0), c_pad, l_pad, *args,
+            torch.cuda.current_stream(m_t.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} failed: "
+                           + lib.membership_error_string(err).decode())
+    LAUNCHES["membership_counts"] += 1
+
+
+def membership_row_counts(m_t, *, kl: int, tile: int):
+    """K3's row pass: (dep_count (c_pad,), block_counts (l_pad // kl, c_pad //
+    tile)) int32 of the int8 Mᵀ m_t (captures x lines).
+
+    dep_count[c] sums row c; block_counts[b, t] sums line block b (lines [b
+    kl, (b + 1) kl)) over the rows of dep tile t: the popcounts the sweep's
+    block-skip schedule reads.  One read of Mᵀ on the card.
+    """
+    _check_membership("membership_row_counts", m_t)
+    c_pad, l_pad = m_t.shape
+    if kl <= 0 or l_pad % kl or tile <= 0 or c_pad % tile:
+        raise ValueError(f"line block {kl} and dep tile {tile} must divide "
+                         f"the membership's ({c_pad}, {l_pad})")
+    if m_t.device.type == "cpu":
+        return membership_row_counts_plain(m_t, kl=kl, tile=tile)
+    if kl % 16 or tile % 128:
+        raise ValueError(f"K3 takes line blocks in multiples of 16 and dep "
+                         f"tiles in multiples of 128: kl={kl} tile={tile}")
+    dep_count = torch.zeros(c_pad, dtype=torch.int32, device=m_t.device)
+    block_counts = torch.zeros((l_pad // kl, c_pad // tile), dtype=torch.int32,
+                               device=m_t.device)
+    if m_t.numel():
+        _membership_launch(m_t, "membership_rows_launch", kl, tile,
+                           dep_count.data_ptr(), block_counts.data_ptr())
+    return dep_count, block_counts
+
+
+def membership_line_counts(m_t, mask):
+    """K3's line pass: lens (l_pad,) int32, lens[l] = the sum of column l of
+    Mᵀ over the rows whose `mask` (c_pad,) entry is set.  Only those rows are
+    read."""
+    _check_membership("membership_line_counts", m_t)
+    c_pad, l_pad = m_t.shape
+    if mask.shape != (c_pad,) or mask.device != m_t.device:
+        raise ValueError(f"mask: expected ({c_pad},) on {m_t.device}, got "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    if m_t.device.type == "cpu":
+        return membership_line_counts_plain(m_t, mask)
+    lens = torch.zeros(l_pad, dtype=torch.int32, device=m_t.device)
+    if m_t.numel():
+        mask8 = mask.to(torch.int8).contiguous()
+        _membership_launch(m_t, "membership_lines_launch", mask8.data_ptr(),
+                           lens.data_ptr())
+    return lens
+
+
+def membership_counts(m_t, min_support: int, *, kl: int, tile: int):
+    """K3 ``membership_counts``: (dep_count, lens, block_counts), the int32
+    aggregates of the dense sweep, in two reads of the int8 Mᵀ: the row pass
+    (``membership_row_counts``), then the line pass over the frequent rows
+    (dep_count >= min_support).  No host sync."""
+    dep_count, block_counts = membership_row_counts(m_t, kl=kl, tile=tile)
+    lens = membership_line_counts(m_t, dep_count >= int(min_support))
+    return dep_count, lens, block_counts
+
+
+def _slab_rows(l_pad: int) -> int:
+    return max(1, MEMBERSHIP_SLAB_ELEMS // max(l_pad, 1))
+
+
+def membership_row_counts_plain(m_t, *, kl: int, tile: int):
+    """Plain PyTorch version of membership_row_counts: one slab of rows
+    (MEMBERSHIP_SLAB_ELEMS entries) widened to int32 at a time, summed per
+    line block, then per row and per dep tile."""
+    c_pad, l_pad = m_t.shape
+    dev = m_t.device
+    dep_count = torch.zeros(c_pad, dtype=torch.int32, device=dev)
+    block_counts = torch.zeros((l_pad // kl, c_pad // tile), dtype=torch.int32,
+                               device=dev)
+    step = _slab_rows(l_pad)
+    for lo in range(0, c_pad, step):
+        slab = m_t[lo:lo + step].to(torch.int32)
+        per_block = slab.reshape(slab.shape[0], l_pad // kl, kl).sum(
+            dim=2, dtype=torch.int32)
+        dep_count[lo:lo + step] = per_block.sum(dim=1, dtype=torch.int32)
+        tiles = torch.arange(lo, lo + slab.shape[0], device=dev) // tile
+        block_counts.index_add_(1, tiles, per_block.T)
+    return dep_count, block_counts
+
+
+def membership_line_counts_plain(m_t, mask):
+    """Plain PyTorch version of membership_line_counts: the masked rows of one
+    slab at a time, widened to int32 and summed down the rows."""
+    c_pad, l_pad = m_t.shape
+    lens = torch.zeros(l_pad, dtype=torch.int32, device=m_t.device)
+    mask = mask.to(torch.bool)
+    step = _slab_rows(l_pad)
+    for lo in range(0, c_pad, step):
+        rows = m_t[lo:lo + step][mask[lo:lo + step]]
+        if rows.numel():
+            lens += rows.to(torch.int32).sum(dim=0, dtype=torch.int32)
+    return lens
+
+
+def membership_counts_plain(m_t, min_support: int, *, kl: int, tile: int):
+    """Plain PyTorch version of membership_counts (same inputs and outputs)."""
+    dep_count, block_counts = membership_row_counts_plain(m_t, kl=kl,
+                                                          tile=tile)
+    lens = membership_line_counts_plain(m_t, dep_count >= int(min_support))
+    return dep_count, lens, block_counts
 
 
 def _check_device(name: str, *tensors) -> torch.device:

@@ -73,7 +73,7 @@ def test_build_membership_and_block_counts_match():
     kl = tcooc.line_block_for(plan.l_pad)
     want = np.asarray(jcooc._stage_block_counts(jnp.asarray(st["m"]), kl=kl,
                                                 tile=plan.tile))
-    got = tcooc.stage_block_counts(m_t, kl=kl, tile=plan.tile).numpy()
+    got = kernels.membership_row_counts(m_t, kl=kl, tile=plan.tile)[1].numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -85,18 +85,17 @@ def test_stage_membership_on_mt_matches_jax(min_support):
     plan, st = _stage_state(seed=5, n=800, min_support=min_support)
     t = state.stage_state_to_device(
         {k: st[k] for k in ("line_gid", "cap_id", "valid")}, "cpu")
-    m_t, dep_count, lens = tallatonce._stage_membership(
+    m_t, dep_count, lens, block_counts = tallatonce._stage_membership(
         t["line_gid"], t["cap_id"], t["valid"], min_support, l_pad=plan.l_pad,
-        c_pad=plan.c_pad)
+        c_pad=plan.c_pad, tile=plan.tile)
     np.testing.assert_array_equal(m_t.numpy(), st["m"].astype(np.int8).T)
     np.testing.assert_array_equal(dep_count.numpy(), st["dep_count"])
     np.testing.assert_array_equal(lens.numpy(), st["lens"])
     assert lens.sum() > 0 and (dep_count.numpy() < min_support).any()
     kl = tcooc.line_block_for(plan.l_pad)
-    np.testing.assert_array_equal(
-        tcooc.stage_block_counts(m_t, kl=kl, tile=plan.tile).numpy(),
-        np.asarray(jcooc._stage_block_counts(jnp.asarray(st["m"]), kl=kl,
-                                             tile=plan.tile)))
+    want = np.asarray(jcooc._stage_block_counts(jnp.asarray(st["m"]), kl=kl,
+                                                tile=plan.tile))
+    np.testing.assert_array_equal(block_counts.numpy(), want)
 
 
 @pytest.mark.parametrize("min_support", [2, 4])
@@ -112,11 +111,13 @@ def test_discover_pairs_dense_matches_on_handed_over_state(min_support):
         {k: st[k] for k in ("m", "dep_count", "cap_code", "cap_v1",
                             "cap_v2")}, "cpu")
     tplan = tcooc.dense_plan(jplan.n_lines, jplan.num_caps, "cpu")
+    m_t = t["m"].T.contiguous()
+    _, block_counts = kernels.membership_row_counts(
+        m_t, kl=tplan.line_block, tile=tplan.tile)
     stats = {}
     d_t, r_t, s_t = tcooc.discover_pairs_dense(
-        t["m"].T.contiguous(), t["dep_count"], t["cap_code"], t["cap_v1"],
-        t["cap_v2"],
-        min_support, tplan, stats=stats)
+        m_t, t["dep_count"], block_counts, t["cap_code"], t["cap_v1"],
+        t["cap_v2"], min_support, tplan, stats=stats)
     want = set(zip(d_j.tolist(), r_j.tolist(), s_j.tolist()))
     assert want, "the workload must produce CINDs"
     assert set(zip(d_t.tolist(), r_t.tolist(), s_t.tolist())) == want
@@ -140,7 +141,7 @@ def test_launch_union_schedule_equals_per_tile_schedules():
         torch.full((c_pad,), 12, dtype=torch.int32),
         torch.arange(c_pad, dtype=torch.int32),
         torch.full((c_pad,), -1, dtype=torch.int32), 2)
-    counts = tcooc.stage_block_counts(mt, kl=256, tile=tile).numpy()
+    counts = kernels.membership_row_counts(mt, kl=256, tile=tile)[1].numpy()
     launches = tcooc.sweep_launches(counts, range(0, c_pad, tile), tile)
     assert len(launches) == 1 and launches[0].width == c_pad
     n_blocks = l_pad // 256
@@ -214,7 +215,7 @@ def test_extract_packed_iter_keeps_tile_order():
         np.testing.assert_array_equal(r, want[1])
 
 
-def test_union_line_counts_match_jax():
+def test_union_line_counts_match_jax(monkeypatch):
     from rdfind_tpu.models import small_to_large as js2l
 
     rng = np.random.default_rng(4)
@@ -222,6 +223,7 @@ def test_union_line_counts_match_jax():
     mask = rng.random(384) < 0.4
     want = np.asarray(js2l._union_line_counts(jnp.asarray(m),
                                               jnp.asarray(mask)))
+    monkeypatch.setattr(kernels, "MEMBERSHIP_SLAB_ELEMS", 100 * 256)
     got = tcooc.union_line_counts(torch.as_tensor(m.T.copy()),
-                                  torch.as_tensor(mask), rows_per_step=100)
+                                  torch.as_tensor(mask))
     np.testing.assert_array_equal(got.numpy(), want)

@@ -163,7 +163,8 @@ def test_k1_sweep_launches_queue_without_host_sync(cuda, monkeypatch):
     with PyTorch's sync debug mode raising on any host sync."""
     monkeypatch.setattr(cooc, "LAUNCH_COLS", 128)  # one launch per dep tile
     m, cols, rows = _block(9, 1280, 512, cuda)
-    counts = cooc.stage_block_counts(m, kl=256, tile=128).cpu().numpy()
+    counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
+    counts = counts.cpu().numpy()
     launches = cooc.sweep_launches(counts, range(0, 512, 128), 128)
     scheds = kernels.upload_schedules(
         [(ln.block_ids, ln.block_ids.size) for ln in launches], 5, cuda)
@@ -196,6 +197,112 @@ def test_discover_on_cuda_equals_cpu(cuda):
     want = rdfind_tpu_torch.discover(triples, 3, strategy=0, device="cpu",
                                      clean_implied=True)
     assert len(want) > 0 and got.to_rows() == want.to_rows()
+
+
+def _k3_case(m_t, min_support, kl, tile):
+    """K3 on the card against its plain version on the same Mᵀ; returns the
+    kernel's (dep_count, lens, block_counts)."""
+    kernels.reset_launches()
+    got = kernels.membership_counts(m_t, min_support, kl=kl, tile=tile)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["membership_counts"] == 2
+    want = kernels.membership_counts_plain(m_t, min_support, kl=kl, tile=tile)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("c_pad,l_pad,kl,tile,min_support", [
+    (512, 1280, 256, 128, 30),    # five 256-line blocks, four dep tiles
+    (384, 4096, 1024, 128, 100),  # lanes past a 512-byte row chunk
+    (1024, 2048, 512, 256, 55),   # two warps' rows per dep tile
+    (128, 256, 256, 128, 0),      # one CTA, every row counted
+    (256, 768, 256, 256, 10**6),  # no frequent row: lens all zero
+])
+def test_k3_kernel_matches_plain(cuda, c_pad, l_pad, kl, tile, min_support):
+    gen = torch.Generator(device=cuda).manual_seed(c_pad + l_pad)
+    m = (torch.randint(0, 16, (c_pad, l_pad), generator=gen, device=cuda,
+                       dtype=torch.int32) == 0).to(torch.int8)
+    m[::3] = 0  # dead rows
+    dep, lens, blocks = _k3_case(m, min_support, kl, tile)
+    assert int(dep.sum()) == int(m.sum())
+    assert int(blocks.sum()) == int(m.sum())
+    if min_support > l_pad:
+        assert int(lens.sum()) == 0
+
+
+def test_k3_kernel_past_2_31_entries(cuda):
+    """An Mᵀ of more than 2^31 entries (as LUBM(100)'s 4.0e10): the rows past
+    the 2^31st byte are counted where the plain version counts them."""
+    c_pad, l_pad = 640, 3_355_648
+    assert c_pad * l_pad > 1 << 31
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    m = torch.empty((c_pad, l_pad), dtype=torch.int8, device=cuda)
+    for lo in range(0, c_pad, 64):  # a row band at a time: no wide temporary
+        m[lo:lo + 64] = (torch.randint(0, 64, (64, l_pad), generator=gen,
+                                       device=cuda, dtype=torch.int32) == 0)
+    m[-1, -1] = 1  # the last entry, at offset c_pad * l_pad - 1
+    kl = cooc.line_block_for(l_pad)
+    dep, lens, blocks = _k3_case(m, 40_000, kl, 128)
+    assert int(dep[-1]) > 40_000 and int(lens[-1]) >= 1
+    union = torch.zeros(c_pad, dtype=torch.bool, device=cuda)
+    union[c_pad // 2:] = True
+    want = kernels.membership_line_counts_plain(m, union)
+    assert torch.equal(cooc.union_line_counts(m, union), want)
+
+
+def test_k3_membership_stage_queues_without_host_sync(cuda):
+    """The membership stage's counts (K3's two launches and the frequency
+    mask between them) queue with no host sync, and equal the CPU's."""
+    triples = torch.as_tensor(synth.generate_triples(3000, seed=5))
+    out = {}
+    for dev in ("cpu", cuda):
+        t = triples.to(dev)
+        (gid, cap_id, valid, n_lines, *_, num_caps) = \
+            allatonce._stage_prepare(t, 3, projections="spo",
+                                     use_fc_filter=True)
+        plan = cooc.dense_plan(n_lines, num_caps, "cpu")
+        m_t = cooc.build_membership(gid, cap_id, valid, l_pad=plan.l_pad,
+                                    c_pad=plan.c_pad)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = kernels.membership_counts(
+                m_t, 3, kl=plan.line_block, tile=plan.tile)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out[str(dev)] = [c.cpu() for c in (m_t, *counts)]
+    assert kernels.LAUNCHES["membership_counts"] == 2
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        assert torch.equal(a, b)
+
+
+def test_dense_plan_on_the_card_ignores_the_allocators_cache(cuda):
+    """The plan reads the allocator's cached blocks as usable: the same plan
+    with 8 GiB cached by an earlier allocation as with the cache emptied."""
+    triples = synth.generate_triples(20000, seed=9)
+    plans = []
+    for cached in (True, False):
+        if cached:
+            block = torch.empty(8 << 30, dtype=torch.int8, device=cuda)
+            del block
+        else:
+            torch.cuda.empty_cache()
+        assert (torch.cuda.memory_reserved(cuda)
+                - torch.cuda.memory_allocated(cuda) >= 8 << 30) == cached
+        stats = {}
+        rdfind_tpu_torch.discover(triples, 3, strategy=0, device=cuda,
+                                  stats=stats)
+        torch.cuda.synchronize()
+        assert stats["pair_backend"] == "matmul"
+        plans.append(stats["dense_plan"])
+    keys = ("l_pad", "c_pad", "tile", "footprint_bytes")
+    assert [{k: p[k] for k in keys} for p in plans][0] == \
+        {k: plans[1][k] for k in keys}
+    assert abs(plans[0]["budget_bytes"] - plans[1]["budget_bytes"]) < 64 << 20
+    assert plans[0]["footprint_bytes"] <= plans[0]["budget_bytes"]
 
 
 def _contains_inputs(seed, d, r, bits, n_pad, device):

@@ -32,6 +32,8 @@ PARENT = {
     "rdfind.prepare.lines": "rdfind.prepare",
     "rdfind.plan": None,
     "rdfind.membership": None,
+    "rdfind.membership.scatter": "rdfind.membership",
+    "rdfind.membership.counts": "rdfind.membership",
     "rdfind.sweep": None,
     "rdfind.sweep.schedule": "rdfind.sweep",
     "rdfind.sweep.launch": "rdfind.sweep",
@@ -170,3 +172,5 @@ def test_the_benchmark_reader_times_the_answer_and_the_sweep(triples):
         assert tr.range_s(name) > 0, name
     assert tr.range_s("rdfind.sweep") >= tr.range_s(
         "rdfind.sweep.schedule", "rdfind.sweep.launch", "rdfind.sweep.decode")
+    assert tr.range_s("rdfind.membership") >= tr.range_s(
+        "rdfind.membership.scatter", "rdfind.membership.counts") > 0
