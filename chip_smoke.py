@@ -16,7 +16,9 @@ imports nothing of JAX or of the JAX package.  Phases, each printed as JSON line
    version's time, the time of one library call for the same function (a
    yardstick the port never calls), the least time the card could take
    (``bound_ms``), the rate reached (``tops``) and ``share_of_bound``: K1
-   (strategy 0's fused sweep on the K-major membership Mᵀ), K3 (the
+   (strategy 0's fused sweep on the K-major membership Mᵀ, with the share of
+   its CTA x line-block products that its block skip keeps,
+   ``visited_share``; ``--only k1`` runs the build and K1's rows alone), K3 (the
    membership counts, on each workload's Mᵀ; ``--only membership`` runs the
    build and K3's rows alone, with no result line), K2 (the Bloom
    containment of strategies 2 and 3, on the sketches the port builds) and the
@@ -378,17 +380,19 @@ def prepare(triples, support: int, device) -> dict:
     cols, rows = cooc.sweep_operands(
         dep_count, allatonce._fit(code, plan.c_pad),
         allatonce._fit(v1, plan.c_pad), allatonce._fit(v2, plan.c_pad), support)
-    counts = counts.cpu().numpy()
+    counts_h = counts.cpu().numpy()
     return dict(m=m_t, plan=plan, support=support, cols=cols, rows=rows,
-                counts=counts,
-                launches=cooc.sweep_launches(counts, plan.dep_tile_starts,
+                counts=counts_h, block_counts=counts,
+                launches=cooc.sweep_launches(counts_h, plan.dep_tile_starts,
                                              plan.tile))
 
 
 def k1_case(name, m, cols, rows, lo, width, block_ids, n_real, ref_lo,
-            ref_chunk) -> dict:
+            ref_chunk, block_counts) -> dict:
     """Arguments of one fused_cind_blocks call on Mᵀ `m`: dep rows [lo, lo +
-    width), ref rows [ref_lo, ref_lo + ref_chunk), the given block schedule."""
+    width), ref rows [ref_lo, ref_lo + ref_chunk), the given block schedule,
+    narrowed per CTA by K3's `block_counts` and split over clusters as the
+    sweep narrows and splits it."""
     dev = m.device
     sl = slice(lo, lo + width)
     args = (m[sl], m, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
@@ -396,8 +400,12 @@ def k1_case(name, m, cols, rows, lo, width, block_ids, n_real, ref_lo,
             rows["code"], rows["v1"],
             torch.as_tensor(np.asarray(block_ids, np.int32)).to(dev),
             torch.tensor([n_real], dtype=torch.int32).to(dev))
-    return dict(name=name, args=args,
-                kw=dict(ref_lo=ref_lo, ref_chunk=ref_chunk))
+    kw = dict(ref_lo=ref_lo, ref_chunk=ref_chunk, block_counts=block_counts,
+              dep_lo=lo)
+    split = kernels.k1_split(
+        *visits_of(args, kw),
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    return dict(name=name, args=args, kw=kw, split=split)
 
 
 def equal_code_case(device) -> dict:
@@ -415,8 +423,9 @@ def equal_code_case(device) -> dict:
         mt.sum(dim=1, dtype=torch.int32), torch.as_tensor(code).to(device),
         torch.as_tensor(v1).to(device), torch.as_tensor(v2).to(device), 1)
     kl = cooc.line_block_for(l_pad)
+    counts = kernels.membership_row_counts(mt, kl=kl, tile=128)[1]
     return k1_case("equal_code_implied", mt, cols, rows, 0, 256,
-                   np.arange(l_pad // kl), l_pad // kl, 0, c_pad)
+                   np.arange(l_pad // kl), l_pad // kl, 0, c_pad, counts)
 
 
 def k1_cases(preps: dict, device) -> list:
@@ -428,37 +437,58 @@ def k1_cases(preps: dict, device) -> list:
         ln = p["launches"][0]
         out.append(k1_case(f"{name}_launch0", p["m"], p["cols"], p["rows"],
                            ln.lo, ln.width, ln.block_ids, ln.block_ids.size, 0,
-                           p["plan"].c_pad))
+                           p["plan"].c_pad, p["block_counts"]))
     h = preps["headline"]
-    plan = h["plan"]
+    plan, counts = h["plan"], h["block_counts"]
     nz = np.flatnonzero(h["counts"][:, 0])
     bucket = 1 << int(np.ceil(np.log2(max(nz.size, 1))))
     padded = np.pad(nz, (0, bucket - nz.size + 1))  # always n_real < nk
     out.append(k1_case("headline_tile0_padded_schedule", h["m"], h["cols"],
                        h["rows"], 0, plan.tile, padded, nz.size, 0,
-                       plan.c_pad))
+                       plan.c_pad, counts))
     out.append(k1_case("headline_tile0_n_real_0", h["m"], h["cols"], h["rows"],
-                       0, plan.tile, np.zeros(4), 0, 0, plan.c_pad))
+                       0, plan.tile, np.zeros(4), 0, 0, plan.c_pad, counts))
     lo = plan.dep_tile_starts[min(8, len(plan.dep_tile_starts) - 1)]
     nz = np.flatnonzero(h["counts"][:, lo // plan.tile])
     out.append(k1_case("headline_diagonal_block", h["m"], h["cols"], h["rows"],
-                       lo, plan.tile, nz, nz.size, lo, plan.tile))
+                       lo, plan.tile, nz, nz.size, lo, plan.tile, counts))
     out.append(equal_code_case(device))
     return out
 
 
+def visits_of(args, kw) -> tuple:
+    """``kernels.k1_visits`` of one fused_cind_blocks call: (dep, ref) bool,
+    on the host, over its scheduled line blocks."""
+    m_dep, m = args[0], args[1]
+    block_ids, n_real = args[11], int(args[12][0])
+    counts = kw["block_counts"]
+    dep, ref = kernels.k1_visits(
+        counts, block_ids[:n_real].long(),
+        count_tile=m.shape[0] // counts.shape[1], dep_lo=kw["dep_lo"],
+        tile=m_dep.shape[0], ref_lo=kw["ref_lo"], ref_chunk=kw["ref_chunk"])
+    return dep.cpu(), ref.cpu()
+
+
 def work_of(case) -> tuple:
-    """(int8 operations, bytes) the call needs at this run's data: the scheduled
-    lines of both operands read once, the columns, and the outputs written once."""
-    m_dep = case["args"][0]
-    n_real = int(case["args"][12][0])
-    tile, l_pad = m_dep.shape
+    """(int8 operations, bytes, CTA x line-block products, products the
+    schedule alone gives) of the call at this run's data: each CTA's product
+    over the line blocks it visits (``kernels.k1_visits``), the lines of
+    those blocks read once per operand row, the columns, and the outputs
+    written once."""
+    tile, l_pad = case["args"][0].shape
+    kl = cooc.line_block_for(l_pad)
     ref_chunk = case["kw"]["ref_chunk"]
-    k = n_real * cooc.line_block_for(l_pad)
-    ops = 2 * tile * ref_chunk * k
-    nbytes = k * (tile + ref_chunk) + 4 * (6 * tile + 3 * ref_chunk) \
-        + tile * ref_chunk // 8 + 4 * tile
-    return ops, nbytes
+    dep, ref = (v.long() for v in visits_of(case["args"], case["kw"]))
+    ref_rows = torch.clamp(ref_chunk - kernels.CIND_CTA_R
+                           * torch.arange(ref.shape[1]), max=kernels.CIND_CTA_R)
+    ops = 2 * kernels.CIND_CTA_D * kl * int(
+        (dep.sum(dim=1) * (ref * ref_rows).sum(dim=1)).sum())
+    dep_any, ref_any = dep.any(dim=1, keepdim=True), ref.any(dim=1, keepdim=True)
+    nbytes = kl * (kernels.CIND_CTA_D * int((dep * ref_any).sum())
+                   + int((ref * ref_rows * dep_any).sum())) \
+        + 4 * (6 * tile + 3 * ref_chunk) + tile * ref_chunk // 8 + 4 * tile
+    return (ops, nbytes, int((dep.sum(dim=1) * ref.sum(dim=1)).sum()),
+            dep.shape[0] * dep.shape[1] * ref.shape[1])
 
 
 def library_product(case):
@@ -477,14 +507,20 @@ def library_product(case):
     return lambda: torch._int_mm(a, b)
 
 
-def compare_k1(args, kw) -> int:
-    """Kernel vs plain on the same inputs; the largest absolute difference over
-    the unpacked verdict bits and the popcounts (raises unless 0)."""
-    packed_k, popc_k = kernels.fused_cind_blocks(*args, **kw)
-    packed_p, popc_p = kernels.fused_cind_blocks_plain(*args, **kw)
+def compare_k1(args, kw, split: int) -> int:
+    """Kernel (its CTAs split `split`-fold) vs plain on the same inputs; the
+    largest absolute difference over the unpacked verdict bits, the popcounts
+    and the visited-block counts (raises unless 0)."""
+    dev = args[1].device
+    visited = [torch.zeros(1, dtype=torch.int32, device=dev) for _ in "kp"]
+    packed_k, popc_k = kernels.fused_cind_blocks(*args, **kw, split=split,
+                                                 visited=visited[0])
+    packed_p, popc_p = kernels.fused_cind_blocks_plain(*args, **kw,
+                                                       visited=visited[1])
     err = max(int((cooc.unpack_bits(packed_k).int()
                    - cooc.unpack_bits(packed_p).int()).abs().max()),
-              int((popc_k - popc_p).abs().max()))
+              int((popc_k - popc_p).abs().max()),
+              int((visited[0] - visited[1]).abs().max()))
     if err or not torch.equal(packed_k, packed_p) \
             or not torch.equal(popc_k, popc_p):
         raise AssertionError(f"fused_cind_blocks disagrees with its plain "
@@ -495,14 +531,16 @@ def compare_k1(args, kw) -> int:
 def run_k1_cases(cases, device) -> list:
     rows = []
     for case in cases:
-        args, kw = case["args"], case["kw"]
-        err = compare_k1(args, kw)
-        ops, nbytes = work_of(case)
+        args, kw, split = case["args"], case["kw"], case["split"]
+        err = compare_k1(args, kw, split)
+        ops, nbytes, visited, scheduled = work_of(case)
         big = ops > 1e12
         reps = 5 if big else 20
-        k_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw), device,
-                       reps=reps, device_only=True)
-        call_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw),
+        k_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw,
+                                                         split=split),
+                       device, reps=reps, device_only=True)
+        call_ms = time_ms(lambda: kernels.fused_cind_blocks(*args, **kw,
+                                                            split=split),
                           device, reps=reps)
         p_ms = time_ms(lambda: kernels.fused_cind_blocks_plain(*args, **kw),
                        device, reps=2 if big else 5)
@@ -513,6 +551,8 @@ def run_k1_cases(cases, device) -> list:
                    l_pad=args[0].shape[1], tile=args[0].shape[0],
                    ref_lo=kw["ref_lo"], ref_chunk=kw["ref_chunk"],
                    nk=args[11].numel(), n_real=int(args[12][0]),
+                   visited_share=visited / scheduled if scheduled else 0.0,
+                   split=split,
                    ops=ops, bytes=nbytes, match=True, max_abs_err=err,
                    kernel_ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
                    library_ms=lib_ms,
@@ -1512,6 +1552,8 @@ def trace_stages(trace_dir) -> dict:
     path = os.path.join(trace_dir, "events-host0.jsonl")
     opened, done = {}, {}
     last_ts = None
+    if not os.path.exists(path):  # stopped before its tracer wrote a line
+        return dict(done_s=done, open=[], open_since_s={})
     with open(path) as f:
         for ln in f:
             try:
@@ -2667,6 +2709,10 @@ def main() -> int:
         run_k3_cases(preps, device)
         emit({"partial": "membership", "ok": True})
         return 0
+    if sys.argv[1:] == ["--only", "k1"]:
+        run_k1_cases(k1_cases(preps, device), device)
+        emit({"partial": "k1", "ok": True})
+        return 0
     k1_rows = run_k1_cases(k1_cases(preps, device), device)
     k3_rows = run_k3_cases(preps, device)
     del preps
@@ -2693,8 +2739,9 @@ def main() -> int:
 
     for ln in p["launches"]:
         case = k1_case("", p["m"], p["cols"], p["rows"], ln.lo, ln.width,
-                       ln.block_ids, ln.block_ids.size, 0, p["plan"].c_pad)
-        compare_k1(case["args"], case["kw"])
+                       ln.block_ids, ln.block_ids.size, 0, p["plan"].c_pad,
+                       p["block_counts"])
+        compare_k1(case["args"], case["kw"], case["split"])
     emit(dict(phase="sweep_check", workload=REAL_SIZE,
               launches_checked=len(p["launches"]), match=True))
     del p

@@ -7,51 +7,79 @@
 // _fused_cind_kernel).  The plain PyTorch version it is held against is
 // rdfind_tpu_torch/ops/kernels.py:fused_cind_blocks_plain.
 //
-// What bounds it on an H100 SXM: the product does 2 * tile * ref_chunk * K int8
-// operations (K = scheduled lines) against (tile + ref_chunk) * K bytes of M^T,
-// i.e. 2 * tile * ref_chunk / (tile + ref_chunk) operations per byte.  At the main
-// path's launch shapes (tile 1,024, ref_chunk 7,424-10,112) that is 1,800-1,900,
-// above the card's ridge of 1,979 TOPS / 3.35 TB/s = 590 ops/byte: int8
-// tensor-core operations bound it.  The verdict and the packed output are small
-// next to M^T, and the int32 count matrix never leaves the registers.
+// What bounds it on an H100 SXM: a CTA multiplies 128 dep x 256 ref rows, 8.4e6
+// int8 operations a 128-line stage, for 48 KB of M^T loaded into shared memory:
+// 175 operations a byte, so 132 CTAs at the card's 1,979 TOPS would pull some
+// 11 TB/s through L2, about twice what it delivers.  CTAs that visit the same
+// line blocks at about the same time share their loads in L2; even then a CTA
+// takes 5.0-5.4 us a line block of 512 lines on one H100 (40-45 % of the int8
+// peak), and CTAs that skip different blocks share less.  The lever is the
+// operations: a CTA multiplies only the line blocks where both its dep rows and
+// its ref rows have members, which the data decides (on LUBM(100), a fifth of
+// what the launch schedules give it).
 //
 // Design (Hopper):
 //   * Operands are K-major: row c of M^T holds capture c's membership over the
 //     lines, so both the dep tile (rows [lo, lo + tile)) and the ref rows are
 //     contiguous along the contraction, the only layout Hopper's int8 tensor-core
 //     instructions take.
-//   * One producer warp turns the device-side schedule (block_ids, n_real) into
-//     TMA 2-D loads of 128-line x 128-row (dep) and 128-line x 256-row (ref) tiles
-//     with the 128-byte swizzle, into a ring of STAGES stages tracked by full and
-//     empty mbarriers.  TMA zero-fills rows past the ref chunk (ragged last block).
+//   * Two-sided block skip: the launch's schedule (block_ids, n_real) is the
+//     union of its dep tiles' non-empty line blocks.  A CTA (128 dep x 256 ref
+//     rows) visits a scheduled block only where the block counts (K3's, one
+//     int32 per line block and plan tile) are non-zero for the plan tile of its
+//     dep rows and for one of the plan tiles its ref rows span.  A skipped block
+//     adds zero to every count of the CTA, so the verdicts are those of the
+//     whole schedule, bit for bit.
+//   * Heavy output tiles split across a thread-block cluster: the `split` CTAs
+//     of one cluster share an output tile, and each multiplies every split-th
+//     block that qualifies.  Their int32 counts are summed through distributed
+//     shared memory into the cluster's first CTA, which alone runs the
+//     epilogue.  The stage ring holds the counts meanwhile: no device memory.
+//   * One producer warp reads 128 schedule entries at a time, judges them with
+//     one ballot per 32, and turns its CTA's share into TMA 2-D loads of
+//     128-line x 128-row (dep) and 128-line x 256-row (ref) tiles with the
+//     128-byte swizzle, into a ring of STAGES stages tracked by full and empty
+//     mbarriers.  Each stage carries a tag: after the last load the producer
+//     hands over one stage tagged as the end, so producer and consumers agree
+//     on the step count without counting the blocks first.  TMA zero-fills
+//     rows past the ref chunk (ragged last block).
 //   * Two consumer warpgroups (64 dep rows each) issue wgmma.m64n256k32.s32.s8.s8
 //     straight from the swizzled shared-memory tiles, four per stage, and keep one
 //     wgmma group in flight while the next stage arrives.
-//   * The grid runs dep blocks fastest: a wave of CTAs covers every dep block of
-//     the launch against a band of ref blocks, so each ref tile is read from
-//     device memory about once per launch and the dep rows stay in L2.
+//   * The grid runs a cluster's CTAs fastest, then dep blocks: a wave of CTAs
+//     covers every dep block of the launch against a band of ref blocks, so the
+//     CTAs that visit a ref tile's line block at about the same time share it
+//     in L2, and the dep rows stay there.
 //   * Epilogue in registers: a thread holds two rows x 2 consecutive columns of
 //     every n8 group; the quad of lanes sharing a row ORs its shifted bits with two
 //     shuffles into the row's 32-bit word.  Per-dep and per-ref values are staged
 //     in shared memory once per CTA; popc takes one atomicAdd per row and CTA.
+//   * Each CTA adds the number of line blocks it multiplied to `visited` (one
+//     atomicAdd), so the caller can read how often the skip engages.
 //
 // Layout contract (checked by the Python wrapper):
-//   m_dep int8 (tile, l_pad), row stride ld_dep; m int8 (c_pad, l_pad), row stride
-//   ld_m; base addresses and strides multiples of 16 bytes; ref rows
-//   [ref_lo, ref_lo + ref_chunk) of m are the ref side.
-//   tile a multiple of 128, ref_chunk and ref_lo multiples of 128, kl (lines per
-//   block) a multiple of 128.
-//   dep columns (tile,) int32: support, ok (support >= min_support), global id,
-//   code, v1, v2.  ref rows (c_pad,) int32: global id, code, v1.
+//   m_dep int8 (dep_rows, l_pad), row stride ld_dep; m int8 (c_pad, l_pad), row
+//   stride ld_m; base addresses and strides multiples of 16 bytes; ref rows
+//   [ref_lo, ref_lo + ref_chunk) of m are the ref side; m_dep holds rows
+//   [dep_lo, dep_lo + dep_rows) of m.
+//   dep_rows a multiple of 128, ref_chunk and ref_lo multiples of 128, kl (lines
+//   per block) a multiple of 128.
+//   dep columns (dep_rows,) int32: support, ok (support >= min_support), global
+//   id, code, v1, v2.  ref rows (c_pad,) int32: global id, code, v1.
 //   block_ids (nk,) int32 line-block ids, n_real (1,) int32: only the first n_real
-//   entries are visited.  The schedule lives on the device and is not read by
-//   the host, so the kernel checks it: n_real outside [0, nk] or a visited id
+//   entries are scheduled.  The schedule lives on the device and is not read by
+//   the host, so the kernel checks it: n_real outside [0, nk] or a scheduled id
 //   outside [0, n_blocks) traps, and the launch fails instead of counting the
 //   wrong lines (TMA would zero-fill a block past the lines without a fault).
-//   packed (tile, ref_chunk / 32) uint32: bit r of word w in row d is the verdict
-//   for ref column ref_lo + 32 w + r.  Every word is written.
-//   popc (tile,) int32, zeroed by the caller: per-dep count of set verdict bits.
+//   block_counts (n_blocks, n_count_tiles) int32, row-major: the members of line
+//   block b in capture rows [t count_tile, (t + 1) count_tile), count_tile a
+//   multiple of 128.
+//   packed (dep_rows, ref_chunk / 32) uint32: bit r of word w in row d is the
+//   verdict for ref column ref_lo + 32 w + r.  Every word is written.
+//   popc (dep_rows,) int32, zeroed by the caller: per-dep count of set verdict
+//   bits.  visited (1,) int32 or null: the blocks multiplied are added to it.
 
+#include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,7 +98,13 @@ constexpr int CONSUMER_WARPS = 8;
 constexpr int N_COLS = 6;  // per-dep values staged in shared memory
 constexpr int N_ROWS = 3;  // per-ref values
 constexpr int SMEM_BYTES = 1024 /* alignment slack */ + STAGES * STAGE_BYTES +
-                           4 * (N_COLS * BM + N_ROWS * BN) + 16 * STAGES;
+                           4 * (N_COLS * BM + N_ROWS * BN) + 16 * STAGES +
+                           4 * STAGES /* stage tags */;
+constexpr int MAX_SPLIT = 8;  // the portable cluster size
+constexpr int SCAN = 4;       // schedule entries per producer lane and pass
+// A consumer thread's 128 counts, as int4, fit the ring for the cluster sum.
+static_assert(CONSUMER_WARPS * 32 * 128 * 4 <= STAGES * STAGE_BYTES,
+              "the stage ring must hold one CTA's counts");
 
 // Error codes of the launcher beside cudaError_t's (which are >= 0).
 constexpr int ERR_NO_ENCODER = -1;
@@ -207,6 +241,15 @@ __device__ __forceinline__ bool trivially_implied(int dcode, int dv1, int dv2,
   return sub && (first == rcode ? rv1 == dv1 : rv1 == dv2);
 }
 
+// Whether the CTA with dep plan tile `td` and ref plan tiles tr0..tr1 (at most
+// two) multiplies line block `block`: both sides have members there.
+__device__ __forceinline__ bool block_qualifies(const int* __restrict__ counts,
+                                                int n_count_tiles, int block,
+                                                int td, int tr0, int tr1) {
+  const int* row = counts + static_cast<long long>(block) * n_count_tiles;
+  return __ldg(row + td) != 0 && (__ldg(row + tr0) != 0 || __ldg(row + tr1) != 0);
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 fused_cind_kernel(const __grid_constant__ CUtensorMap map_dep,
                   const __grid_constant__ CUtensorMap map_ref,
@@ -218,7 +261,11 @@ fused_cind_kernel(const __grid_constant__ CUtensorMap map_dep,
                   const int* __restrict__ block_ids,
                   const int* __restrict__ n_real, int nk, int n_blocks,
                   int kl, int ref_lo, int ref_chunk,
-                  unsigned* __restrict__ packed, int* __restrict__ popc) {
+                  const int* __restrict__ block_counts, int count_tile,
+                  int n_count_tiles, int dep_lo, int split,
+                  unsigned* __restrict__ packed, int* __restrict__ popc,
+                  int* __restrict__ visited) {
+  namespace cg = cooperative_groups;
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle repeats every 1,024 bytes: tiles start on that grain.
   uint8_t* tiles = reinterpret_cast<uint8_t*>(
@@ -227,12 +274,16 @@ fused_cind_kernel(const __grid_constant__ CUtensorMap map_dep,
   int* s_rows = s_cols + N_COLS * BM;
   uint64_t* full = reinterpret_cast<uint64_t*>(s_rows + N_ROWS * BN);
   uint64_t* empty = full + STAGES;
+  // Tag of each stage: 1 holds tiles, 0 marks the end of the CTA's schedule.
+  volatile int* tag = reinterpret_cast<volatile int*>(empty + STAGES);
 
   const int tid = threadIdx.x;
+  // The `split` CTAs of a cluster share one output tile (blockIdx.x / split).
   // Dep blocks vary fastest, so the CTAs of one wave share few ref tiles: a
   // wave streams its ref rows from device memory once, not once per dep block.
-  const int d0 = blockIdx.x * BM;  // dep rows of this CTA within the tile
-  const int r0 = blockIdx.y * BN;  // ref rows within the chunk
+  const int rank = blockIdx.x % split;
+  const int d0 = (blockIdx.x / split) * BM;  // dep rows of this CTA
+  const int r0 = blockIdx.y * BN;            // ref rows within the chunk
 
   for (int i = tid; i < BM; i += THREADS) {
     const int d = d0 + i;
@@ -262,63 +313,127 @@ fused_cind_kernel(const __grid_constant__ CUtensorMap map_dep,
   const int n_sched = n_real[0];
   if (n_sched < 0 || n_sched > nk) __trap();
   const int steps_per_block = kl / BK;
-  const int n_steps = n_sched * steps_per_block;
   const int wg = tid >> 7;
+  const int lane = tid & 31;
 
+  int d[128];
   if (wg == 0) {
-    // Producer: one thread walks the schedule and keeps STAGES loads in flight.
-    if (tid == 0) {
-      int kk = 0, sub = 0, block = 0;
-      for (int it = 0; it < n_steps; ++it) {
-        const int s = it % STAGES;
-        if (sub == 0) {
-          block = block_ids[kk];
-          if (block < 0 || block >= n_blocks) __trap();
+    if (tid < 32) {
+      // Producer warp: judge SCAN x 32 schedule entries a pass (one ballot per
+      // 32), take every split-th block that qualifies, and keep STAGES loads
+      // in flight from one lane.
+      const int td = (dep_lo + d0) / count_tile;
+      const int tr0 = (ref_lo + r0) / count_tile;
+      const int tr1 = (ref_lo + min(r0 + BN, ref_chunk) - 1) / count_tile;
+      int it = 0, seen = 0, mine = 0;
+      for (int base = 0; base < n_sched; base += SCAN * 32) {
+        int block[SCAN];
+        bool take[SCAN];
+#pragma unroll
+        for (int j = 0; j < SCAN; ++j) {
+          const int k = base + 32 * j + lane;
+          block[j] = k < n_sched ? block_ids[k] : 0;
+          if (block[j] < 0 || block[j] >= n_blocks) __trap();
         }
+#pragma unroll
+        for (int j = 0; j < SCAN; ++j)
+          take[j] = base + 32 * j + lane < n_sched &&
+                    block_qualifies(block_counts, n_count_tiles, block[j], td,
+                                    tr0, tr1);
+#pragma unroll
+        for (int j = 0; j < SCAN; ++j) {
+          unsigned mask = __ballot_sync(0xffffffffu, take[j]);
+          while (mask) {  // uniform over the warp
+            const int src = __ffs(mask) - 1;
+            mask &= mask - 1;
+            const int b = __shfl_sync(0xffffffffu, block[j], src);
+            if (seen++ % split != rank) continue;
+            ++mine;
+            if (lane == 0) {
+              for (int sub = 0; sub < steps_per_block; ++sub, ++it) {
+                const int s = it % STAGES;
+                mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+                const int line = b * kl + sub * BK;
+                uint8_t* stage = tiles + s * STAGE_BYTES;
+                tag[s] = 1;
+                mbar_expect_tx(&full[s], STAGE_BYTES);
+                tma_load_2d(stage, &map_dep, &full[s], line, d0);
+                tma_load_2d(stage + A_BYTES, &map_ref, &full[s], line, r0);
+              }
+            }
+          }
+        }
+      }
+      if (lane == 0) {
+        const int s = it % STAGES;
         mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-        const int line = block * kl + sub * BK;
-        uint8_t* stage = tiles + s * STAGE_BYTES;
-        mbar_expect_tx(&full[s], STAGE_BYTES);
-        tma_load_2d(stage, &map_dep, &full[s], line, d0);
-        tma_load_2d(stage + A_BYTES, &map_ref, &full[s], line, r0);
-        if (++sub == steps_per_block) {
-          sub = 0;
-          ++kk;
+        tag[s] = 0;
+        mbar_arrive(&full[s]);
+        if (visited != nullptr && mine) atomicAdd(visited, mine);
+      }
+    }
+  } else {
+    const int cw = wg - 1;  // dep rows [64 cw, 64 cw + 64) of the CTA
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0;
+    for (int it = 0;; ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      if (tag[s] == 0) break;  // the producer's end mark
+      const uint8_t* a = tiles + s * STAGE_BYTES + cw * 64 * BK;
+      const uint8_t* b = tiles + s * STAGE_BYTES + A_BYTES;
+      fence_acc(d);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < BK / 32; ++k)
+        wgmma_m64n256k32(d, smem_desc(a + 32 * k), smem_desc(b + 32 * k));
+      wgmma_commit();
+      fence_acc(d);
+      // The products of step it - 1 are done: its stage may be refilled.
+      wgmma_wait<1>();
+      fence_acc(d);
+      if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+    }
+    wgmma_wait<0>();
+    fence_acc(d);
+  }
+
+  if (split > 1) {
+    // Sum the cluster's counts into its first CTA through distributed shared
+    // memory.  Every product has landed and been consumed, so the ring is
+    // free; thread t's 128 counts go to int4 slots [j * 256 + t], j < 32.
+    cg::cluster_group cluster = cg::this_cluster();
+    int4* ring = reinterpret_cast<int4*>(tiles);
+    const int ct = tid - 128;  // consumer thread
+    __syncthreads();
+    if (rank != 0 && wg > 0) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        ring[j * 256 + ct] = make_int4(d[4 * j], d[4 * j + 1], d[4 * j + 2],
+                                       d[4 * j + 3]);
+    }
+    cluster.sync();
+    if (rank == 0 && wg > 0) {
+      for (int p = 1; p < split; ++p) {
+        const int4* peer = cluster.map_shared_rank(ring, p);
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int4 v = peer[j * 256 + ct];
+          d[4 * j] += v.x;
+          d[4 * j + 1] += v.y;
+          d[4 * j + 2] += v.z;
+          d[4 * j + 3] += v.w;
         }
       }
     }
-    return;
+    cluster.sync();  // no CTA leaves while its counts may still be read
   }
-
-  const int cw = wg - 1;  // dep rows [64 cw, 64 cw + 64) of the CTA
-  const int lane = tid & 31;
-  int d[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0;
-
-  for (int it = 0; it < n_steps; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
-    const uint8_t* a = tiles + s * STAGE_BYTES + cw * 64 * BK;
-    const uint8_t* b = tiles + s * STAGE_BYTES + A_BYTES;
-    fence_acc(d);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < BK / 32; ++k)
-      wgmma_m64n256k32(d, smem_desc(a + 32 * k), smem_desc(b + 32 * k));
-    wgmma_commit();
-    fence_acc(d);
-    // The products of step it - 1 are done: its stage may be refilled.
-    wgmma_wait<1>();
-    fence_acc(d);
-    if (it > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
-  }
-  wgmma_wait<0>();
-  fence_acc(d);
+  if (wg == 0 || rank != 0) return;
 
   // Epilogue.  Thread (warp w of the warpgroup, lane = 4 g + q) holds, for n8
   // group J, d[4 J + 2 h + c] = count of dep row 16 w + g + 8 h, ref column
   // 8 J + 2 q + c.  A 32-column word gathers groups 4 jj .. 4 jj + 3.
+  const int cw = wg - 1;
   const int g = lane >> 2;
   const int q = lane & 3;
   const int row0 = cw * 64 + ((tid & 127) >> 5) * 16 + g;
@@ -433,14 +548,24 @@ extern "C" int fused_cind_launch(const void* m_dep, long long ld_dep,
                                  const void* dv1, const void* dv2,
                                  const void* ridx, const void* rcode,
                                  const void* rv1, const void* block_ids,
-                                 const void* n_real, int tile, int ref_chunk,
-                                 int kl, int ref_lo, int nk, void* packed,
-                                 void* popc, void* stream) {
-  if (tile <= 0 || tile % BM || ref_chunk <= 0 || ref_chunk % 128 ||
-      ref_lo % 128 || kl <= 0 || kl % BK || l_pad % kl || nk < 0)
+                                 const void* n_real, int dep_rows,
+                                 int ref_chunk, int kl, int ref_lo, int nk,
+                                 const void* block_counts, int count_tile,
+                                 int n_count_tiles, int dep_lo, int split,
+                                 void* packed, void* popc, void* visited,
+                                 void* stream) {
+  if (dep_rows <= 0 || dep_rows % BM || ref_chunk <= 0 || ref_chunk % 128 ||
+      ref_lo % 128 || kl <= 0 || kl % BK || l_pad % kl || nk < 0 ||
+      count_tile <= 0 || count_tile % BM || n_count_tiles <= 0 ||
+      dep_lo < 0 || dep_lo % BM || split < 1 || split > MAX_SPLIT ||
+      block_counts == nullptr ||
+      static_cast<long long>(dep_lo) + dep_rows >
+          static_cast<long long>(count_tile) * n_count_tiles ||
+      static_cast<long long>(ref_lo) + ref_chunk >
+          static_cast<long long>(count_tile) * n_count_tiles)
     return ERR_SHAPE;
   CUtensorMap map_dep, map_ref;
-  int err = encode_rows(&map_dep, m_dep, l_pad, tile, ld_dep, BM);
+  int err = encode_rows(&map_dep, m_dep, l_pad, dep_rows, ld_dep, BM);
   if (err) return err;
   err = encode_rows(&map_ref, static_cast<const int8_t*>(m) + ref_lo * ld_m,
                     l_pad, ref_chunk, ld_m, BN);
@@ -449,18 +574,30 @@ extern "C" int fused_cind_launch(const void* m_dep, long long ld_dep,
       fused_cind_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       SMEM_BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(tile / BM, (ref_chunk + BN - 1) / BN);
-  fused_cind_kernel<<<grid, THREADS, SMEM_BYTES,
-                      static_cast<cudaStream_t>(stream)>>>(
-      map_dep, map_ref, static_cast<const int*>(sup),
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split * (dep_rows / BM), (ref_chunk + BN - 1) / BN);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t l = cudaLaunchKernelEx(
+      &cfg, fused_cind_kernel, map_dep, map_ref, static_cast<const int*>(sup),
       static_cast<const int*>(ok), static_cast<const int*>(gid),
       static_cast<const int*>(dcode), static_cast<const int*>(dv1),
       static_cast<const int*>(dv2), static_cast<const int*>(ridx),
       static_cast<const int*>(rcode), static_cast<const int*>(rv1),
       static_cast<const int*>(block_ids), static_cast<const int*>(n_real), nk,
       static_cast<int>(l_pad / kl), kl, ref_lo, ref_chunk,
-      static_cast<unsigned*>(packed),
-      static_cast<int*>(popc));
+      static_cast<const int*>(block_counts), count_tile, n_count_tiles, dep_lo,
+      split, static_cast<unsigned*>(packed), static_cast<int*>(popc),
+      static_cast<int*>(visited));
+  if (l != cudaSuccess) return static_cast<int>(l);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,8 +29,8 @@ _I = ctypes.c_int
 # C signatures of each library's launchers: {symbol: argtypes}.
 SIGNATURES = {
     "fused_cind": {"fused_cind_launch":
-                   [_P, _LL, _P, _LL, _LL] + [_P] * 11 + [_I] * 5
-                   + [_P, _P, _P],
+                   [_P, _LL, _P, _LL, _LL] + [_P] * 11 + [_I] * 5 + [_P]
+                   + [_I] * 4 + [_P] * 4,
                    "fused_cind_smem_bytes": []},
     "contains": {"contains_launch": [_P] * 4 + [_I] * 3 + [_P],
                  "repeat_probe_launch": [_P, _P, _I, _I, _P],

@@ -171,9 +171,9 @@ def dense_footprint(l_pad: int, c_pad: int, tile: int, *,
     `extra_bytes` what a caller's path allocates beside Mᵀ besides this
     path's own.  Beside Mᵀ: K3's outputs (dep_count, its mask, lens, the
     block counts), then the larger of the scatter's bounded temporaries and
-    the sweep's (K1's operands and schedules, every launch's packed verdicts
-    and popcounts, and the decode of the widest launch: its bits unpacked as
-    two int32 tensors at once).
+    the sweep's (K1's operands, schedules and visited-block counter, every
+    launch's packed verdicts and popcounts, and the decode of the widest
+    launch: its bits unpacked as two int32 tensors at once).
     """
     kl = line_block_for(l_pad)
     m_bytes = l_pad * c_pad
@@ -181,7 +181,7 @@ def dense_footprint(l_pad: int, c_pad: int, tile: int, *,
     scatter = SCATTER_ROW_BYTES * min(int(scatter_rows), SCATTER_ROWS)
     n_launch = -(-c_pad // tile)
     width = min(max(LAUNCH_COLS, tile), c_pad)
-    sweep = (4 * 9 * c_pad + 4 * n_launch * (l_pad // kl + 1)
+    sweep = (4 * 9 * c_pad + 4 * n_launch * (l_pad // kl + 1) + 4
              + c_pad * (c_pad // 8 + 4) + 8 * width * c_pad)
     return m_bytes + counts + max(scatter, sweep) + int(extra_bytes)
 
@@ -452,13 +452,14 @@ def union_line_counts(m_t, mask):
 
 
 def fused_cind_tile(m_t, lo: int, width: int, cols: dict, rows: dict,
-                    block_ids, n_real):
+                    block_ids, n_real, block_counts, visited, split: int):
     """One launch of K1 over dep rows [lo, lo + width) of Mᵀ and every ref.
 
     `cols` holds the per-capture int32 columns over the whole capture axis
     (sup, ok, gid, code, v1, v2) and `rows` the per-ref rows (ridx, code, v1);
-    the schedule is as ``kernels.fused_cind_blocks`` takes it.  Returns (packed
-    (width, c_pad // 32) int32, popc (width,) int32).
+    the schedule, K3's `block_counts`, the `visited` counter and the `split`
+    are as ``kernels.fused_cind_blocks`` takes them.  Returns (packed (width, c_pad //
+    32) int32, popc (width,) int32).
     """
     from . import kernels
 
@@ -467,7 +468,8 @@ def fused_cind_tile(m_t, lo: int, width: int, cols: dict, rows: dict,
         m_t[sl], m_t, cols["sup"][sl], cols["ok"][sl], cols["gid"][sl],
         cols["code"][sl], cols["v1"][sl], cols["v2"][sl],
         rows["ridx"], rows["code"], rows["v1"], block_ids, n_real,
-        ref_lo=0, ref_chunk=m_t.shape[0])
+        ref_lo=0, ref_chunk=m_t.shape[0], block_counts=block_counts,
+        dep_lo=lo, split=split, visited=visited)
 
 
 def sweep_operands(dep_count, cap_code, cap_v1, cap_v2, min_support: int):
@@ -497,16 +499,21 @@ def discover_pairs_dense(m_t, dep_count, block_counts, cap_code, cap_v1,
     all launches' schedules are checked on the host and reach the device in one
     copy, then every launch is queued back to back with no host sync between
     them, one host pull brings all launches' set-bit counts, and only launches
-    with set bits are decoded.
+    with set bits are decoded.  K1 narrows each launch's schedule per CTA with
+    the same block counts, and shares a launch's pieces over clusters where a
+    few of them hold most of its work (``kernels.k1_split``, from the host's
+    copy of the counts); the blocks its CTAs multiplied come back in that
+    pull, and ``stats["dense_plan"]`` gets them (``k1_blocks_visited``) beside
+    the blocks the launch schedules give every CTA (``k1_blocks_scheduled``).
     """
     from . import kernels
 
     kl, tile, num_caps = plan.line_block, plan.tile, plan.num_caps
     los = plan.dep_tile_starts
     with tracer.profile_range("rdfind.sweep.schedule"):
-        block_counts = block_counts.cpu().numpy()
-        launches = sweep_launches(block_counts, los, tile)
-        empty = block_counts[:, [lo // tile for lo in los]] == 0
+        counts_h = block_counts.cpu().numpy()
+        launches = sweep_launches(counts_h, los, tile)
+        empty = counts_h[:, [lo // tile for lo in los]] == 0
         n_blocks_skipped = int(empty.sum())
         n_tiles_data_skipped = int(empty.all(axis=0).sum())
         metrics.gauge_set(stats, "n_blocks_skipped", n_blocks_skipped)
@@ -523,12 +530,30 @@ def discover_pairs_dense(m_t, dep_count, block_counts, cap_code, cap_v1,
         schedules = kernels.upload_schedules(
             [(ln.block_ids, ln.block_ids.size) for ln in launches],
             plan.n_line_blocks, m_t.device)
+        n_sms = (torch.cuda.get_device_properties(m_t.device)
+                 .multi_processor_count if m_t.is_cuda else 0)
+        splits = [kernels.k1_split(*kernels.k1_visits(
+            torch.from_numpy(counts_h), torch.from_numpy(ln.block_ids).long(),
+            count_tile=tile, dep_lo=ln.lo, tile=ln.width, ref_lo=0,
+            ref_chunk=plan.c_pad), n_sms) for ln in launches]
+        visited = torch.zeros(1, dtype=torch.int32, device=m_t.device)
     with tracer.profile_range("rdfind.sweep.launch"):
-        outs = [fused_cind_tile(m_t, ln.lo, ln.width, cols, rows, *sched)
-                for ln, sched in zip(launches, schedules)]
+        outs = [fused_cind_tile(m_t, ln.lo, ln.width, cols, rows, *sched,
+                                block_counts, visited, split)
+                for ln, sched, split in zip(launches, schedules, splits)]
     with tracer.profile_range("rdfind.sweep.decode"):
-        counts = (torch.stack([popc.sum() for _, popc in outs]).cpu().numpy()
-                  if outs else np.zeros(0, np.int64))
+        pulled = (torch.cat([torch.stack([popc.sum() for _, popc in outs]),
+                             visited.long()]).cpu().numpy()
+                  if outs else np.zeros(1, np.int64))
+        del visited  # gone before the decode's temporaries, the sweep's peak
+        counts, n_visited = pulled[:-1], int(pulled[-1])
+        ref_ctas = -(-plan.c_pad // kernels.CIND_CTA_R)
+        scheduled = sum(ln.width // kernels.CIND_CTA_D * ref_ctas
+                        * ln.block_ids.size for ln in launches)
+        metrics.struct_update(
+            stats, "dense_plan", k1_blocks_visited=n_visited,
+            k1_blocks_scheduled=scheduled,
+            k1_visited_share=n_visited / scheduled if scheduled else 0.0)
         deps, refs = [], []
         for ln, (packed, _), n in zip(launches, outs, counts):
             if not n:

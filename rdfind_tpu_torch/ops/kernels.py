@@ -10,7 +10,9 @@ K1 ``fused_cind_blocks`` replaces ``rdfind_tpu/ops/pallas_kernels.py:
 fused_cind_blocks``: one (tile x ref_chunk) block of the dense CIND sweep on the
 K-major membership Mᵀ, with the co-occurrence counts summed over the scheduled
 line blocks only and the CIND verdict packed to 32-bit words
-(``cooc.pack_bool``'s layout).
+(``cooc.pack_bool``'s layout).  Given K3's block counts, each 128 x 256 piece
+of the block sums only the scheduled line blocks where both its dep rows and
+its ref rows have members (``k1_visits``), and counts the blocks it visits.
 
 K2 ``packed_contains_matrix`` replaces ``pallas_kernels.packed_contains_matrix``:
 the Bloom containment test of the approximate strategies on packed words.  P1
@@ -38,6 +40,15 @@ from . import build, cooc
 CIND_BLOCK_D = 128
 CIND_BLOCK_R = 128
 CIND_KC = 128  # lines per pipeline stage of K1: a line block is a multiple
+# Dep and ref rows of one K1 CTA: the pieces whose line blocks k1_visits judges.
+CIND_CTA_D = 128
+CIND_CTA_R = 256
+# Most CTAs (a cluster) that share one K1 piece, and the line blocks each CTA
+# of a shared piece keeps at least (k1_split).  On one H100, LUBM(100)'s sweep
+# took 230 / 202 / 193 / 204 ms at 1 / 2 / 4 / 8 CTAs a piece, and LUBM(1)'s
+# 1.16 / 1.41 / 2.67 / 6.35 ms (schedules of at most 92 blocks).
+K1_SPLIT_MAX = 4
+K1_SPLIT_BLOCKS = 64
 CONTAINS_BLOCK_D = 64
 CONTAINS_BLOCK_R = 64
 
@@ -94,7 +105,7 @@ def upload_schedules(schedules, n_blocks: int, device) -> list:
 
 
 def _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
-                        ref_chunk):
+                        ref_chunk, block_counts, dep_lo, split, visited):
     if m_dep.dtype != torch.int8 or m.dtype != torch.int8:
         raise TypeError("membership operands must be int8")
     if m_dep.dim() != 2 or m.dim() != 2 or m_dep.shape[1] != m.shape[1]:
@@ -108,17 +119,31 @@ def _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
                          "lines")
     if (tile % CIND_BLOCK_D or ref_chunk <= 0 or ref_chunk % CIND_BLOCK_R
             or ref_lo % CIND_BLOCK_R or ref_lo < 0
-            or ref_lo + ref_chunk > c_pad or l_pad % kl or kl % CIND_KC):
+            or ref_lo + ref_chunk > c_pad or l_pad % kl or kl % CIND_KC
+            or dep_lo % CIND_BLOCK_D or dep_lo < 0 or dep_lo + tile > c_pad
+            or not 1 <= split <= K1_SPLIT_MAX):
         raise ValueError(f"fused tile not block-aligned: tile={tile} "
-                         f"ref_lo={ref_lo} ref_chunk={ref_chunk} c_pad={c_pad} "
-                         f"l_pad={l_pad}")
+                         f"dep_lo={dep_lo} ref_lo={ref_lo} "
+                         f"ref_chunk={ref_chunk} c_pad={c_pad} l_pad={l_pad} "
+                         f"split={split}")
     dev = m.device
     for name, t, n in ([(k, v, tile) for k, v in cols.items()]
-                       + [(k, v, c_pad) for k, v in rows.items()]):
+                       + [(k, v, c_pad) for k, v in rows.items()]
+                       + ([] if visited is None else [("visited", visited, 1)])):
         if t.dtype != torch.int32 or t.numel() != n or not t.is_contiguous() \
                 or t.device != dev:
             raise ValueError(f"{name}: expected {n} contiguous int32 values on "
                              f"{dev}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    shape = tuple(block_counts.shape)
+    if block_counts.dtype != torch.int32 or len(shape) != 2 \
+            or shape[0] != l_pad // kl or not shape[1] or c_pad % shape[1] \
+            or (c_pad // shape[1]) % CIND_BLOCK_D \
+            or not block_counts.is_contiguous() or block_counts.device != dev:
+        raise ValueError(f"block_counts: expected contiguous int32 (line "
+                         f"blocks {l_pad // kl}, plan tiles) on {dev} with "
+                         f"tiles of 128 x k of the {c_pad} captures, got "
+                         f"{tuple(block_counts.shape)} {block_counts.dtype} "
+                         f"on {block_counts.device}")
     if m_dep.device != dev or block_ids.device != dev or n_real.device != dev:
         raise ValueError("all operands must be on one device")
     if block_ids.dtype != torch.int32 or block_ids.dim() != 1 \
@@ -131,9 +156,59 @@ def _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
                        l_pad // kl)
 
 
+def k1_visits(block_counts, blocks, *, count_tile: int, dep_lo: int,
+              tile: int, ref_lo: int, ref_chunk: int):
+    """Which scheduled line blocks each 128 x 256 piece of a K1 launch
+    multiplies, as (dep (n, G), ref (n, H)) bool over the n line blocks
+    `blocks` (int64), the G = tile / 128 dep pieces (rows dep_lo + [128 g,
+    128 g + 128)) and the H = ceil(ref_chunk / 256) ref pieces (rows ref_lo +
+    [256 h, 256 h + 256), within the chunk): piece (g, h) multiplies block i
+    where dep[i, g] and ref[i, h].
+
+    `block_counts` are K3's (line blocks, c_pad // count_tile) member counts.
+    dep[i, g] says they are non-zero for the plan tile of the dep piece's rows,
+    ref[i, h] for one of the (at most two) plan tiles the ref piece's rows
+    span.  Elsewhere one side has no member in the block, which then adds zero
+    to every count of the piece.
+    """
+    dev = block_counts.device
+    live = block_counts[blocks] != 0  # (n, plan tiles)
+    dep_tiles = (dep_lo + CIND_CTA_D * torch.arange(tile // CIND_CTA_D,
+                                                    device=dev)) // count_tile
+    first = CIND_CTA_R * torch.arange(-(-ref_chunk // CIND_CTA_R), device=dev)
+    last = torch.clamp(first + CIND_CTA_R, max=ref_chunk) - 1
+    return live[:, dep_tiles], (live[:, (ref_lo + first) // count_tile]
+                                | live[:, (ref_lo + last) // count_tile])
+
+
+def k1_split(dep, ref, n_sms: int) -> int:
+    """CTAs that share each 128 x 256 output piece of a K1 launch (one
+    thread-block cluster), from the line blocks its pieces multiply
+    (``k1_visits``) on a card of `n_sms` SMs (0: no card, no split).
+
+    With one CTA on an SM at a time, a launch lasts about its work spread over
+    the SMs, or its heaviest piece if that is longer, and heavy pieces that
+    start late add their length to the end.  S CTAs cut a piece S-fold, but
+    each still judges the whole schedule, the cluster sums 128 KB of counts,
+    and CTAs that load different blocks share less of L2 (a full membership
+    split 4-fold took 848 ms against 617-659 unsplit, LUBM(100), one H100).
+    So S doubles, up to K1_SPLIT_MAX, only while the heaviest piece is longer
+    than half the spread work and keeps K1_SPLIT_BLOCKS blocks a CTA.
+    """
+    per_piece = dep.T.to(torch.float64) @ ref.to(torch.float64)  # (G, H)
+    heaviest = int(per_piece.max()) if per_piece.numel() else 0
+    total = int(per_piece.sum())
+    split = 1
+    while (split < K1_SPLIT_MAX and heaviest >= 2 * split * K1_SPLIT_BLOCKS
+           and 2 * n_sms * heaviest > split * total):
+        split *= 2
+    return split
+
+
 def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
                       dv2_col, ridx_row, rcode_row, rv1_row, block_ids, n_real,
-                      *, ref_lo: int, ref_chunk: int):
+                      *, ref_lo: int, ref_chunk: int, block_counts,
+                      dep_lo: int, split: int, visited=None):
     """(tile x ref_chunk) fused CIND verdict, packed, plus the per-dep popcount.
 
     m: (c_pad, l_pad) int8 K-major membership Mᵀ (captures x lines); m_dep:
@@ -147,6 +222,13 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
     on the host.  A CUDA schedule is not read back here (that would sync the
     host): the kernel checks it itself and traps on a bad one.
 
+    ``block_counts`` (K3's (l_pad // kl, c_pad // plan tile) int32, on m's
+    device) narrows the schedule per 128 x 256 piece (``k1_visits``); m_dep
+    is rows [dep_lo, dep_lo + tile) of m.  ``split`` CTAs (1 to
+    K1_SPLIT_MAX, ``k1_split``) share each piece.  ``visited`` (a
+    one-element int32 tensor) has the number of (piece, line block) products
+    added to it.  None of them changes a bit of the output.
+
     Returns (packed, popc): (tile, ref_chunk // 32) int32 words where bit r of word
     w in row d is the verdict for ref column ref_lo + 32 w + r, and (tile,) int32
     set-bit counts per dep row.
@@ -157,12 +239,13 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
                 dcode_col=dcode_col, dv1_col=dv1_col, dv2_col=dv2_col)
     rows = dict(ridx_row=ridx_row, rcode_row=rcode_row, rv1_row=rv1_row)
     _check_fused_inputs(m_dep, m, cols, rows, block_ids, n_real, ref_lo,
-                        ref_chunk)
+                        ref_chunk, block_counts, dep_lo, split, visited)
     if m.device.type == "cpu":
         return fused_cind_blocks_plain(
             m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col, dv2_col,
             ridx_row, rcode_row, rv1_row, block_ids, n_real, ref_lo=ref_lo,
-            ref_chunk=ref_chunk)
+            ref_chunk=ref_chunk, block_counts=block_counts, dep_lo=dep_lo,
+            visited=visited)
     for t in (m_dep, m):
         if t.data_ptr() % 16 or t.stride(0) % 16:
             raise ValueError("membership operands need 16-byte aligned rows")
@@ -170,6 +253,7 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
     packed = torch.empty((tile, ref_chunk // 32), dtype=torch.int32,
                          device=m.device)
     popc = torch.zeros(tile, dtype=torch.int32, device=m.device)
+    n_count_tiles = block_counts.shape[1]
     lib = build.load("fused_cind")
     stream = torch.cuda.current_stream(m.device).cuda_stream
     err = lib.fused_cind_launch(
@@ -177,8 +261,10 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
         *(t.data_ptr() for t in cols.values()),
         *(t.data_ptr() for t in rows.values()),
         block_ids.data_ptr(), n_real.data_ptr(), tile, ref_chunk,
-        _fused_kl(l_pad), ref_lo, block_ids.numel(), packed.data_ptr(),
-        popc.data_ptr(), stream)
+        _fused_kl(l_pad), ref_lo, block_ids.numel(), block_counts.data_ptr(),
+        m.shape[0] // n_count_tiles, n_count_tiles, dep_lo, split,
+        packed.data_ptr(), popc.data_ptr(),
+        None if visited is None else visited.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("fused_cind launch failed: "
                            + lib.fused_cind_error_string(err).decode())
@@ -188,18 +274,27 @@ def fused_cind_blocks(m_dep, m, sup_col, ok_col, gid_col, dcode_col, dv1_col,
 
 def fused_cind_blocks_plain(m_dep, m, sup_col, ok_col, gid_col, dcode_col,
                             dv1_col, dv2_col, ridx_row, rcode_row, rv1_row,
-                            block_ids, n_real, *, ref_lo: int, ref_chunk: int):
+                            block_ids, n_real, *, ref_lo: int, ref_chunk: int,
+                            block_counts=None, dep_lo: int = 0, visited=None):
     """Plain PyTorch version of fused_cind_blocks (same inputs and outputs, the
-    schedule as tensors).
+    schedule as tensors; the split is the kernel's alone).
 
     The membership lines of the scheduled line blocks are widened to float64 for
     the product, which is exact: every count is a sum of at most l_pad < 2^53
-    unit terms.
+    unit terms.  Every piece sums the whole schedule, the kernel's skip aside:
+    the skipped blocks add zero.  ``visited`` is given the products the kernel
+    makes, counted from ``block_counts`` (``k1_visits``).
     """
     tile, l_pad = m_dep.shape
     kl = _fused_kl(l_pad)
     n = int(n_real.reshape(-1)[0])
     blocks = block_ids[:n].long()
+    if visited is not None:
+        dep, ref = k1_visits(block_counts, blocks,
+                             count_tile=m.shape[0] // block_counts.shape[1],
+                             dep_lo=dep_lo, tile=tile, ref_lo=ref_lo,
+                             ref_chunk=ref_chunk)
+        visited += (dep.sum(dim=1) * ref.sum(dim=1)).sum().to(torch.int32)
     lines = (blocks[:, None] * kl
              + torch.arange(kl, device=m.device)[None, :]).reshape(-1)
     a = m_dep[:, lines].to(torch.float64)

@@ -14,6 +14,7 @@ import torch
 from rdfind_tpu.models import allatonce as jallatonce
 from rdfind_tpu.ops import cooc as jcooc
 from rdfind_tpu.ops import segments as jseg
+import rdfind_tpu_torch
 from rdfind_tpu_torch import state
 from rdfind_tpu_torch.models import allatonce as tallatonce
 from rdfind_tpu_torch.ops import cooc as tcooc
@@ -141,18 +142,22 @@ def test_launch_union_schedule_equals_per_tile_schedules():
         torch.full((c_pad,), 12, dtype=torch.int32),
         torch.arange(c_pad, dtype=torch.int32),
         torch.full((c_pad,), -1, dtype=torch.int32), 2)
-    counts = kernels.membership_row_counts(mt, kl=256, tile=tile)[1].numpy()
+    block_counts = kernels.membership_row_counts(mt, kl=256, tile=tile)[1]
+    counts = block_counts.numpy()
+    visited = torch.zeros(1, dtype=torch.int32)
     launches = tcooc.sweep_launches(counts, range(0, c_pad, tile), tile)
     assert len(launches) == 1 and launches[0].width == c_pad
     n_blocks = l_pad // 256
     (joint_sched,) = kernels.upload_schedules(
         [(launches[0].block_ids, launches[0].block_ids.size)], n_blocks, "cpu")
-    joint, popc = tcooc.fused_cind_tile(mt, 0, c_pad, cols, rows, *joint_sched)
+    joint, popc = tcooc.fused_cind_tile(mt, 0, c_pad, cols, rows, *joint_sched,
+                                        block_counts, visited, 1)
     for lo in range(0, c_pad, tile):
         own = np.flatnonzero(counts[:, lo // tile]).astype(np.int32)
         assert own.size < launches[0].block_ids.size
         (sched,) = kernels.upload_schedules([(own, own.size)], n_blocks, "cpu")
-        p, c = tcooc.fused_cind_tile(mt, lo, tile, cols, rows, *sched)
+        p, c = tcooc.fused_cind_tile(mt, lo, tile, cols, rows, *sched,
+                                     block_counts, visited, 1)
         np.testing.assert_array_equal(p.numpy(), joint[lo:lo + tile].numpy())
         np.testing.assert_array_equal(c.numpy(), popc[lo:lo + tile].numpy())
     assert int(popc.sum()) >= 64
@@ -227,3 +232,120 @@ def test_union_line_counts_match_jax(monkeypatch):
     got = tcooc.union_line_counts(torch.as_tensor(m.T.copy()),
                                   torch.as_tensor(mask))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _visit_count_brute_force(m, blocks, *, count_tile, dep_lo, tile, ref_lo,
+                             ref_chunk, kl):
+    """(dep piece, ref piece, block) triples where the plan tile of the dep
+    piece's rows and one plan tile its ref rows span have a member in the
+    block, read off Mᵀ itself."""
+    def live(t, b):
+        return bool(m[t * count_tile:(t + 1) * count_tile,
+                      b * kl:(b + 1) * kl].any())
+
+    n = 0
+    for g in range(tile // 128):
+        td = (dep_lo + 128 * g) // count_tile
+        for h in range(-(-ref_chunk // 256)):
+            first = ref_lo + 256 * h
+            last = ref_lo + min(256 * h + 256, ref_chunk) - 1
+            tiles = range(first // count_tile, last // count_tile + 1)
+            n += sum(live(td, b) and any(live(t, b) for t in tiles)
+                     for b in blocks)
+    return n
+
+
+@pytest.mark.parametrize("count_tile,dep_lo,tile,ref_lo,ref_chunk", [
+    (128, 0, 256, 0, 1024),     # two dep pieces, four ref pieces
+    (128, 384, 128, 128, 640),  # ref pieces across two plan tiles, ragged
+    (256, 128, 384, 0, 896),    # dep pieces in two plan tiles, ragged
+    (512, 512, 512, 256, 768),  # ref pieces inside one plan tile
+])
+def test_k1_plain_visited_equals_brute_force_count(count_tile, dep_lo, tile,
+                                                   ref_lo, ref_chunk):
+    """The plain K1's visited blocks are the (dep piece, ref piece, block)
+    triples where both sides have members, counted over Mᵀ; counting them
+    changes no verdict bit."""
+    rng = np.random.default_rng(count_tile + dep_lo)
+    l_pad, c_pad, kl = 2304, 1024, 256  # nine 256-line blocks
+    m = np.zeros((c_pad, l_pad), np.int8)
+    for c in range(c_pad):  # each 128-row band lives in two line blocks
+        for b in ((c // 128) % 9, (c // 128 + 4) % 9):
+            m[c, b * kl + rng.choice(kl, 8, replace=False)] = 1
+    m[:128, ::97] = 1  # one dense band, in every block
+    for c in range(0, c_pad, 5):  # containments inside a band
+        m[c // 128 * 128 + (c + 3) % 128] |= m[c]
+    mt = torch.as_tensor(m)
+    blocks = [0, 2, 3, 4, 5, 7, 8]
+    lines = np.concatenate([np.arange(b * kl, (b + 1) * kl) for b in blocks])
+    cols, rows = tcooc.sweep_operands(  # supports over the scheduled lines
+        mt[:, lines].sum(dim=1, dtype=torch.int32),
+        torch.as_tensor(rng.choice([12, 17, 20], c_pad).astype(np.int32)),
+        torch.as_tensor(rng.integers(0, 3, c_pad).astype(np.int32)),
+        torch.as_tensor(rng.integers(-1, 3, c_pad).astype(np.int32)), 2)
+    counts = kernels.membership_row_counts(mt, kl=kl, tile=count_tile)[1]
+    sl = slice(dep_lo, dep_lo + tile)
+    args = (mt[sl], mt, *(cols[k][sl] for k in ("sup", "ok", "gid", "code",
+                                                "v1", "v2")),
+            rows["ridx"], rows["code"], rows["v1"],
+            torch.tensor(blocks + [1], dtype=torch.int32),
+            torch.tensor([len(blocks)], dtype=torch.int32))
+    kw = dict(ref_lo=ref_lo, ref_chunk=ref_chunk)
+    visited = torch.zeros(1, dtype=torch.int32)
+    got = kernels.fused_cind_blocks(*args, **kw, block_counts=counts,
+                                    dep_lo=dep_lo, split=1, visited=visited)
+    want = _visit_count_brute_force(m, blocks, count_tile=count_tile,
+                                    dep_lo=dep_lo, tile=tile, ref_lo=ref_lo,
+                                    ref_chunk=ref_chunk, kl=kl)
+    scheduled = tile // 128 * -(-ref_chunk // 256) * len(blocks)
+    assert 0 < want < scheduled
+    assert int(visited) == want
+    whole = kernels.fused_cind_blocks_plain(*args, **kw)
+    assert torch.equal(got[0], whole[0]) and torch.equal(got[1], whole[1])
+    assert int(got[1].sum()) > 0
+
+
+def test_dense_discover_publishes_k1_visited_blocks():
+    """A dense discover reports the blocks K1's CTAs multiplied against the
+    blocks their launches schedule; on a membership with members in every
+    line block of every plan tile (one line block here) nothing is skipped,
+    and on a wider input the visited blocks are a share of the scheduled."""
+    for n, share_one in ((400, True), (6000, False)):
+        stats = {}
+        rdfind_tpu_torch.discover(synth.generate_triples(n, seed=5), 2,
+                                  strategy=0, device="cpu", stats=stats)
+        d = stats["dense_plan"]
+        assert (d["l_pad"] == d["line_block"]) == share_one
+        assert 0 < d["k1_blocks_visited"] <= d["k1_blocks_scheduled"]
+        assert d["k1_visited_share"] == pytest.approx(
+            d["k1_blocks_visited"] / d["k1_blocks_scheduled"])
+        assert (d["k1_visited_share"] == 1.0) == share_one
+
+
+def _launch_pieces(n, others, *, dep_pieces=8, ref_pieces=47):
+    """k1_visits of a launch over n line blocks where piece (0, 0) multiplies
+    every block and every other piece the first `others`."""
+    dep = torch.zeros((n, dep_pieces), dtype=torch.bool)
+    ref = torch.zeros((n, ref_pieces), dtype=torch.bool)
+    dep[:, 0] = ref[:, 0] = True
+    dep[:others, 1:] = ref[:others, 1:] = True
+    return dep, ref
+
+
+@pytest.mark.parametrize("n,others,n_sms,pieces,split", [
+    (3840, 3840, 132, (8, 47), 1),  # a full membership: the card is filled
+    (3840, 768, 132, (8, 47), 4),   # one piece holds 5x the mean: LUBM(100)
+    (1000, 600, 132, (8, 47), 2),   # 1.17x half the spread: split once
+    (100, 0, 132, (8, 47), 1),      # too short to share: 50 blocks a CTA
+    (128, 0, 132, (8, 47), 2),
+    (3840, 768, 0, (8, 47), 1),     # no card
+    (1000, 1000, 132, (2, 4), 4),   # full, but 8 pieces for 132 SMs
+])
+def test_k1_split_follows_the_heaviest_piece(n, others, n_sms, pieces, split):
+    """A launch's pieces share a cluster only while its heaviest piece is
+    longer than half its work spread over the SMs and leaves each CTA
+    K1_SPLIT_BLOCKS line blocks, and never more than K1_SPLIT_MAX CTAs."""
+    dep, ref = _launch_pieces(n, others, dep_pieces=pieces[0],
+                              ref_pieces=pieces[1])
+    assert kernels.k1_split(dep, ref, n_sms) == split
+    assert split == 1 or kernels.K1_SPLIT_BLOCKS * split <= n

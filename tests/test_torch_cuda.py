@@ -58,8 +58,11 @@ def _k1_case(cuda, m, cols, rows, lo, width, blocks, n_real, ref_lo,
             rows["code"], rows["v1"],
             torch.tensor(blocks, dtype=torch.int32, device=cuda),
             torch.tensor([n_real], dtype=torch.int32, device=cuda))
+    counts = kernels.membership_row_counts(
+        m, kl=cooc.line_block_for(m.shape[1]), tile=128)[1]
     kernels.reset_launches()
-    got = kernels.fused_cind_blocks(*args, ref_lo=ref_lo, ref_chunk=ref_chunk)
+    got = kernels.fused_cind_blocks(*args, ref_lo=ref_lo, ref_chunk=ref_chunk,
+                                    block_counts=counts, dep_lo=lo, split=1)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["fused_cind_blocks"] == 1
     want = kernels.fused_cind_blocks_plain(*args, ref_lo=ref_lo,
@@ -117,11 +120,14 @@ cuda = torch.device("cuda", 0)
 m = torch.zeros((512, 1280), dtype=torch.int8, device=cuda)
 z = torch.zeros(512, dtype=torch.int32, device=cuda)
 cols, rows = cooc.sweep_operands(z, z, z, z, 0)
+counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
+visited = torch.zeros(1, dtype=torch.int32, device=cuda)
 try:
     cooc.fused_cind_tile(
         m, 0, 128, cols, rows,
         torch.tensor(blocks, dtype=torch.int32, device=cuda),
-        torch.tensor([n_real], dtype=torch.int32, device=cuda))
+        torch.tensor([n_real], dtype=torch.int32, device=cuda), counts,
+        visited, 1)
     torch.cuda.synchronize()
 except RuntimeError as e:
     print("refused:", e)
@@ -163,16 +169,18 @@ def test_k1_sweep_launches_queue_without_host_sync(cuda, monkeypatch):
     with PyTorch's sync debug mode raising on any host sync."""
     monkeypatch.setattr(cooc, "LAUNCH_COLS", 128)  # one launch per dep tile
     m, cols, rows = _block(9, 1280, 512, cuda)
-    counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
-    counts = counts.cpu().numpy()
+    block_counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
+    counts = block_counts.cpu().numpy()
     launches = cooc.sweep_launches(counts, range(0, 512, 128), 128)
     scheds = kernels.upload_schedules(
         [(ln.block_ids, ln.block_ids.size) for ln in launches], 5, cuda)
+    visited = torch.zeros(1, dtype=torch.int32, device=cuda)
     torch.cuda.synchronize()
     kernels.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        outs = [cooc.fused_cind_tile(m, ln.lo, ln.width, cols, rows, *sched)
+        outs = [cooc.fused_cind_tile(m, ln.lo, ln.width, cols, rows, *sched,
+                                     block_counts, visited, 1)
                 for ln, sched in zip(launches, scheds)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
@@ -186,6 +194,101 @@ def test_k1_sweep_launches_queue_without_host_sync(cuda, monkeypatch):
             rows["ridx"], rows["code"], rows["v1"],
             *sched, ref_lo=0, ref_chunk=512)
         assert torch.equal(packed, want[0]) and torch.equal(popc, want[1])
+
+
+def _skip_membership(kind, device):
+    """Mᵀ for the two-sided block skip (256-line blocks): "diagonal", each
+    128-row band in one line block, so most (CTA, block) pairs skip;
+    "full", members in every block of every band, so none skips; "heavy",
+    two dense bands in every one of 257 blocks beside bands in one block
+    each, a schedule long enough that k1_split shares each piece across a
+    cluster.  Containments are planted inside bands."""
+    rng = np.random.default_rng(len(kind))
+    l_blocks, c_pad = {"diagonal": (9, 1024), "full": (9, 1024),
+                       "heavy": (257, 1280)}[kind]
+    m = np.zeros((c_pad, 256 * l_blocks), np.int8)
+    if kind == "full":
+        m[:] = rng.random(m.shape) < 0.03
+    else:
+        for c in range(c_pad):
+            b = (c // 128) % l_blocks
+            m[c, 256 * b + rng.choice(256, 12, replace=False)] = 1
+    if kind == "heavy":
+        m[:256] = rng.random((256, m.shape[1])) < 0.05
+    for c in range(0, c_pad, 3):
+        m[c // 128 * 128 + (c + 5) % 128] |= m[c]
+    return torch.as_tensor(m).to(device)
+
+
+def _visits_from_counts(counts, blocks, count_tile, dep_lo, tile, ref_lo,
+                        ref_chunk):
+    """The (CTA, block) products a launch makes, recounted on the host from
+    the block counts."""
+    n = 0
+    for g in range(tile // 128):
+        td = (dep_lo + 128 * g) // count_tile
+        for h in range(-(-ref_chunk // 256)):
+            tr0 = (ref_lo + 256 * h) // count_tile
+            tr1 = (ref_lo + min(256 * h + 256, ref_chunk) - 1) // count_tile
+            n += sum(bool(counts[b, td]) and bool(counts[b, tr0]
+                                                  or counts[b, tr1])
+                     for b in blocks)
+    return n
+
+
+@pytest.mark.parametrize("kind,count_tile,lo,width,ref_lo,ref_chunk", [
+    ("diagonal", 128, 0, 512, 0, 1024),
+    ("diagonal", 256, 256, 256, 128, 640),   # ragged last ref piece
+    ("full", 128, 128, 384, 0, 640),
+    ("full", 512, 0, 512, 128, 384),
+    ("heavy", 256, 0, 512, 0, 1280),
+    ("heavy", 128, 128, 256, 128, 768),
+])
+@pytest.mark.parametrize("split", [None, 1, 2, 3, 4])
+def test_k1_block_skip_matches_plain(cuda, kind, count_tile, lo, width,
+                                     ref_lo, ref_chunk, split):
+    """K1 with K3's block counts against its plain version, which sums every
+    scheduled block, bit for bit, at the split k1_split picks (None) and at
+    every cluster size; its visited counter equals a host recount from the
+    block counts."""
+    m = _skip_membership(kind, cuda)
+    kl = cooc.line_block_for(m.shape[1])
+    counts = kernels.membership_row_counts(m, kl=kl, tile=count_tile)[1]
+    counts_h = counts.cpu().numpy()
+    t0, t1 = lo // count_tile, (lo + width - 1) // count_tile
+    blocks = np.flatnonzero(counts_h[:, t0:t1 + 1].any(axis=1))
+    ids = torch.arange(m.shape[0], dtype=torch.int32, device=cuda)
+    cols, rows = cooc.sweep_operands(m.sum(dim=1, dtype=torch.int32),
+                                     torch.full_like(ids, 12), ids,
+                                     torch.full_like(ids, -1), 2)
+    sl = slice(lo, lo + width)
+    args = (m[sl], m, *(cols[k][sl] for k in ("sup", "ok", "gid", "code",
+                                              "v1", "v2")),
+            rows["ridx"], rows["code"], rows["v1"],
+            torch.tensor(list(blocks) + [0], dtype=torch.int32, device=cuda),
+            torch.tensor([blocks.size], dtype=torch.int32, device=cuda))
+    kw = dict(ref_lo=ref_lo, ref_chunk=ref_chunk)
+    pick = kernels.k1_split(
+        *kernels.k1_visits(counts, args[11][:blocks.size].long(),
+                           count_tile=count_tile, dep_lo=lo, tile=width,
+                           ref_lo=ref_lo, ref_chunk=ref_chunk),
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    visited = torch.zeros(1, dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    got = kernels.fused_cind_blocks(*args, **kw, block_counts=counts,
+                                    dep_lo=lo, split=split or pick,
+                                    visited=visited)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fused_cind_blocks"] == 1
+    want = kernels.fused_cind_blocks_plain(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 0
+    n = _visits_from_counts(counts_h, blocks, count_tile, lo, width, ref_lo,
+                            ref_chunk)
+    scheduled = width // 128 * -(-ref_chunk // 256) * blocks.size
+    assert int(visited) == n
+    assert (n == scheduled) == (kind == "full")
+    assert (pick > 1) == (kind == "heavy")
 
 
 def test_discover_on_cuda_equals_cpu(cuda):

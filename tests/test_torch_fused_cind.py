@@ -76,10 +76,13 @@ def _torch_block(x, lo, tile, block_ids, n_real, ref_lo, ref_chunk,
     schedule = kernels.upload_schedules([(bids, n_real)], n_blocks, "cpu")[0] \
         if host_schedule else (torch.as_tensor(bids),
                                torch.tensor([n_real], dtype=torch.int32))
+    counts = kernels.membership_row_counts(
+        t["m_t"], kl=tcooc.line_block_for(x["m"].shape[0]), tile=128)[1]
     packed, popc = kernels.fused_cind_blocks(
         t["m_t"][sl], t["m_t"], t["sup"][sl], t["ok"][sl], t["gid"][sl],
         t["code"][sl], t["v1"][sl], t["v2"][sl], t["gid"], t["code"],
-        t["v1"], *schedule, ref_lo=ref_lo, ref_chunk=ref_chunk)
+        t["v1"], *schedule, ref_lo=ref_lo, ref_chunk=ref_chunk,
+        block_counts=counts, dep_lo=lo, split=1)
     return packed.numpy(), popc.numpy()
 
 
@@ -182,6 +185,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     t = _torch_operands(x)
     tile, ref_lo, bids, n_real = 128, 0, [0, 1], 2
     m = t["m_t"]
+    counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
     if bad == "tile":
         tile = 64
     elif bad == "ref_lo":
@@ -199,7 +203,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     if bad == "device":
         args = tuple(a.to("meta") for a in args[:11]) + args[11:]
     with pytest.raises((ValueError, TypeError)):
-        kernels.fused_cind_blocks(*args, ref_lo=ref_lo, ref_chunk=128)
+        kernels.fused_cind_blocks(*args, ref_lo=ref_lo, ref_chunk=128,
+                                  block_counts=counts, dep_lo=0, split=1)
 
 
 def test_pack_bool_matches():
@@ -209,3 +214,35 @@ def test_pack_bool_matches():
         want = np.asarray(jcooc.pack_bool(jnp.asarray(x))).view(np.int32)
         np.testing.assert_array_equal(tcooc.pack_bool(torch.as_tensor(x))
                                       .numpy(), want)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "tile", "dep_lo",
+                                 "visited", "split"])
+def test_wrapper_rejects_block_counts_the_kernel_does_not_take(bad):
+    """K3's block counts, the dep offset, the split and the visited counter
+    are checked on the host like the other operands."""
+    x = _block_inputs(8, 768, 256)
+    t = _torch_operands(x)
+    m = t["m_t"]
+    counts = kernels.membership_row_counts(m, kl=256, tile=128)[1]
+    dep_lo, split, visited = 0, 1, torch.zeros(1, dtype=torch.int32)
+    if bad == "shape":
+        counts = counts[:2]
+    elif bad == "dtype":
+        counts = counts.to(torch.int64)
+    elif bad == "tile":  # plan tiles of 64 captures
+        counts = torch.zeros((3, 4), dtype=torch.int32)
+    elif bad == "dep_lo":
+        dep_lo = 64
+    elif bad == "visited":
+        visited = torch.zeros(2, dtype=torch.int32)
+    elif bad == "split":
+        split = kernels.K1_SPLIT_MAX + 1
+    args = (m[:128], m, t["sup"][:128], t["ok"][:128], t["gid"][:128],
+            t["code"][:128], t["v1"][:128], t["v2"][:128], t["gid"],
+            t["code"], t["v1"], torch.as_tensor(np.array([0, 1], np.int32)),
+            torch.tensor([2], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        kernels.fused_cind_blocks(*args, ref_lo=0, ref_chunk=128,
+                                  block_counts=counts, dep_lo=dep_lo,
+                                  split=split, visited=visited)

@@ -142,7 +142,9 @@ def test_kernel_wrapper_refuses_other_devices():
             m, m, col, col, col, col, col, col, col, col, col,
             torch.zeros(1, dtype=torch.int32, device="meta"),
             torch.ones(1, dtype=torch.int32, device="meta"),
-            ref_lo=0, ref_chunk=128)
+            ref_lo=0, ref_chunk=128,
+            block_counts=torch.zeros((1, 1), dtype=torch.int32, device="meta"),
+            dep_lo=0, split=1)
     words = torch.zeros((64, 64), dtype=torch.int32, device="meta")
     popc = torch.zeros(64, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
